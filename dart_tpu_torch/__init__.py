@@ -1,0 +1,16 @@
+"""dart_tpu_torch — the dart-tpu aligner on PyTorch and CUDA.
+
+A port of the JAX package ``dart_tpu`` to one NVIDIA Hopper GPU. The
+host-side modules of ``dart_tpu`` (index loader and builder, FASTX
+readers, the native C++ packer and pipeline, SAM/BAM writers, CLI
+parser, ``DartAligner``) contain no JAX and are imported as they are.
+This package replaces only the device engine: the FM-index tables on
+the card (``ops.layout``), the seed-scan and SA-locate kernels written
+by hand in CUDA (``csrc/fm_kernels.cu``, built by ``ops.build``), their
+plain PyTorch versions (``ops.fm_plain``), and the engine that serves
+them to the shared seeding code (``ops.fm_torch.FMIndexTorch``).
+
+This package imports ``torch`` and never ``jax``.
+"""
+
+__version__ = "0.1.0"

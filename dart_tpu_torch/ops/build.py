@@ -1,0 +1,80 @@
+"""Build and load the CUDA kernels of ``csrc/`` at first use.
+
+``nvcc`` compiles the sources into a shared library with a plain C
+interface, loaded with ``ctypes``; no PyTorch header is compiled, so the
+build takes seconds. The library lands in ``dart_tpu_torch/_build/``
+under a name keyed on a hash of the sources and the flags, so an edit
+to a kernel builds anew and an unchanged tree reuses its build. A build
+that fails raises with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(PKG, "csrc")
+BUILD_DIR = os.path.join(PKG, "_build")
+SOURCES = ("fm_kernels.cu",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_LOCK = threading.Lock()
+
+
+def nvcc_path() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cand = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None
+    path = cand if cand and os.path.exists(cand) else shutil.which("nvcc")
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME or put nvcc on PATH)")
+    return path
+
+
+def lib_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libdart_fm_{h.hexdigest()[:16]}.so")
+
+
+def build() -> tuple[str, float]:
+    """Compile the sources unless this exact build exists. Returns the
+    library's path and the seconds spent compiling (0 if reused)."""
+    lib = lib_path()
+    with _LOCK:
+        if os.path.exists(lib):
+            return lib, 0.0
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+               *(os.path.join(CSRC, s) for s in SOURCES)]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        os.replace(tmp, lib)
+        return lib, time.perf_counter() - t0
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """The kernel library, built if needed, with its C entries typed."""
+    lib = ctypes.CDLL(build()[0])
+    vp, i32, ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    lib.dart_fm_seed_scan.restype = i32
+    lib.dart_fm_seed_scan.argtypes = [vp, ip, vp, i32, i32, i32, vp, vp]
+    lib.dart_fm_locate.restype = i32
+    lib.dart_fm_locate.argtypes = [vp, ip, vp, i32, vp, vp]
+    return lib

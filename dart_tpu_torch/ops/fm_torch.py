@@ -1,0 +1,210 @@
+"""The port's FM-index engine: seed scan and SA locate on one device.
+
+``FMIndexTorch`` serves the engine surface that the shared seeding code
+(``dart_tpu.pipeline.seeding``) calls: ``seed_submit_packed`` /
+``seed_finish`` for packed chunks, ``seed_reads`` for code matrices,
+``locate_submit`` / ``locate_finish`` / ``locate`` for SA rows, and
+``_pad_up`` / ``_min_bucket`` for the packer. It defines no
+``seed_drain``, so the shared code takes its JAX-free expansion path.
+
+On a CUDA device every scan and locate launches the hand-written kernel
+of ``csrc/fm_kernels.cu`` (or raises); on the CPU it runs the plain
+PyTorch version of ``ops.fm_plain``. Each seed round ships the N mask
+with the reads, gives every read the worst-case seed-slot count and
+runs every lane to its end in one launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import build
+from .fm_plain import locate_plain, seed_scan_plain
+from .layout import tables_from_index, to_device
+
+
+class FMIndexTorch:
+    # no compiled-shape set to keep small: chunks are not padded
+    _min_bucket = 1
+
+    def __init__(self, idx, device="cuda", max_dup_num: int = 100):
+        self.device = torch.device(device)
+        if self.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"unsupported device {self.device}")
+        tabs = tables_from_index(idx)
+        self.primary = tabs["primary"]
+        self.sa_intv = tabs["sa_intv"]
+        self.ref_off = tabs["ref_off"]
+        self.sad_off = tabs["sad_off"]
+        self.seq_len = tabs["seq_len"]
+        self.max_dup_num = int(max_dup_num)
+        dev = to_device(tabs, self.device)
+        self.table, self.L2 = dev["table"], dev["L2"]
+        # the kernels' scalar arguments, in csrc's FmParams order
+        self._params = np.array(
+            [*tabs["L2"].tolist(), self.primary, self.sa_intv, self.sad_off,
+             self.ref_off, self.seq_len, self.max_dup_num], dtype=np.int32)
+        self.n_seed_launches = 0
+        self.n_locate_launches = 0
+
+    @staticmethod
+    def _pad_up(n: int, floor: int = 1) -> int:
+        return max(n, floor)
+
+    @staticmethod
+    def seed_slots(Lp: int, max_rlen: int) -> int:
+        """Worst-case seed count of a read of max_rlen bases: each
+        accepted seed advances the scan by >= 16 from a position below
+        rlen - 13. Rounded up to even, as the JAX engine's tables are."""
+        s = max(1, (max_rlen - 14) // 16 + 1)
+        return min(Lp // 16, s + (s & 1))
+
+    # ---- kernels ----
+
+    def _check(self, t: torch.Tensor, ndim: int) -> None:
+        if (t.device != self.table.device or t.dtype != torch.int32
+                or t.dim() != ndim or not t.is_contiguous()):
+            raise ValueError(f"expected a contiguous {ndim}-d int32 tensor "
+                             f"on {self.table.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+    @staticmethod
+    def _check_launch(rc: int, name: str) -> None:
+        """Raise on the cudaGetLastError() code a C entry returned."""
+        if rc != 0:
+            raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+    def seed_scan(self, buf: torch.Tensor, words: int, S: int) -> torch.Tensor:
+        """Seed tables of the reads in ``buf`` (R, words + words/2 + 1)
+        int32 -> (R, 1 + 4S) int32 [n | rpos | len | k0 | freq]."""
+        self._check(buf, 2)
+        R = buf.shape[0]
+        if buf.shape[1] != words + words // 2 + 1 or words % 2:
+            raise ValueError(f"buf width {buf.shape[1]} != packed width of "
+                             f"{words} code words")
+        if buf.device.type == "cpu":
+            return self.plain_seed_scan(buf, words, S)
+        out = torch.empty((R, 1 + 4 * S), dtype=torch.int32,
+                          device=self.device)
+        if R:
+            rc = build.load().dart_fm_seed_scan(
+                self.table.data_ptr(), self._params_ptr(), buf.data_ptr(),
+                R, words, S, out.data_ptr(), self._stream())
+            self._check_launch(rc, "seed scan")
+            self.n_seed_launches += 1
+        return out
+
+    def locate_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """SA positions of BWT rows (N,) int32 -> (N,) int32."""
+        self._check(rows, 1)
+        if rows.device.type == "cpu":
+            return self.plain_locate(rows)
+        out = torch.empty_like(rows)
+        if rows.numel():
+            rc = build.load().dart_fm_locate(
+                self.table.data_ptr(), self._params_ptr(), rows.data_ptr(),
+                rows.numel(), out.data_ptr(), self._stream())
+            self._check_launch(rc, "locate")
+            self.n_locate_launches += 1
+        return out
+
+    def _params_ptr(self):
+        return self._params.ctypes.data_as(ctypes.POINTER(ctypes.c_int))
+
+    def _stream(self) -> int:
+        return torch.cuda.current_stream(self.device).cuda_stream
+
+    def plain_seed_scan(self, buf: torch.Tensor, words: int,
+                        S: int) -> torch.Tensor:
+        """The plain PyTorch version of ``seed_scan`` on any device."""
+        return seed_scan_plain(
+            self.table, self.L2, buf, words=words, S=S, primary=self.primary,
+            sa_intv=self.sa_intv, sad_off=self.sad_off, ref_off=self.ref_off,
+            seq_len=self.seq_len, max_dup=self.max_dup_num)
+
+    def plain_locate(self, rows: torch.Tensor) -> torch.Tensor:
+        """The plain PyTorch version of ``locate_rows`` on any device."""
+        return locate_plain(self.table, self.L2, rows, primary=self.primary,
+                            sa_intv=self.sa_intv, sad_off=self.sad_off)
+
+    # ---- engine surface of the shared seeding code ----
+
+    def seed_reads(self, codes: np.ndarray, rlens: np.ndarray):
+        """Seed tables of a (R, L) code matrix (codes > 3 are N).
+        Returns (n (R,), rpos/len (R, S) int32, k0 (R, S) int64,
+        freq (R, S) int32)."""
+        R, L = codes.shape
+        if L >= 65536:
+            raise ValueError("reads must be shorter than 65536 bases")
+        buf, nmask, Lp = pack_codes(codes, rlens)
+        max_rlen = int(np.max(rlens)) if R else 1
+        return self.seed_finish(self.seed_submit_packed(
+            buf, nmask, None, 0, R, Lp, max_rlen))
+
+    def seed_submit_packed(self, buf, nmask, has_n, n_with_n: int,
+                           nlive: int, Lp: int, max_rlen: int):
+        """Start the seed scan of the first ``nlive`` packed reads
+        without waiting for it. ``buf`` is (>= nlive, Lp/16 + 1) uint32
+        [codes | rlen] and ``nmask`` (>= nlive, Lp/32) uint32, as the
+        native packer fills them; ``has_n`` and ``n_with_n`` are not
+        needed, since the mask always goes with the reads."""
+        words = Lp // 16
+        S = self.seed_slots(Lp, max_rlen)
+        host = np.concatenate([buf[:nlive, :words], nmask[:nlive],
+                               buf[:nlive, words:words + 1]], axis=1)
+        dev = torch.from_numpy(host.view(np.int32)).to(self.device)
+        return {"out": self.seed_scan(dev, words, S), "S": S}
+
+    def seed_finish(self, job, on_wait=None):
+        """Wait for a submitted scan. Returns (n, rpos, len, k0, freq)."""
+        S = job["S"]
+        o = job["out"].cpu().numpy()
+        if on_wait is not None:
+            on_wait()
+        return (o[:, 0].copy(), o[:, 1:1 + S].copy(),
+                o[:, 1 + S:1 + 2 * S].copy(),
+                o[:, 1 + 2 * S:1 + 3 * S].astype(np.int64),
+                o[:, 1 + 3 * S:1 + 4 * S].copy())
+
+    def locate_submit(self, rows: np.ndarray):
+        """Start locating SA rows without waiting; None when empty."""
+        if rows.shape[0] == 0:
+            return None
+        t = torch.from_numpy(np.asarray(rows, dtype=np.int32))
+        return self.locate_rows(t.to(self.device))
+
+    def locate_finish(self, job) -> np.ndarray:
+        if job is None:
+            return np.empty(0, dtype=np.int64)
+        return job.cpu().numpy().astype(np.int64)
+
+    def locate(self, rows: np.ndarray) -> np.ndarray:
+        return self.locate_finish(self.locate_submit(rows))
+
+
+def pack_codes(codes: np.ndarray, rlens: np.ndarray):
+    """Pack a (R, L) code matrix as the native packer does: 2-bit codes,
+    16 per uint32 word, first base in the top bits, with an rlen column
+    (buf, (R, Lp/16 + 1)); and a 1-bit N mask, 32 bases per word, top
+    first (nmask, (R, Lp/32)). Bases past rlen pack as code 3 with no N
+    bit. Returns (buf, nmask, Lp)."""
+    R, L = codes.shape
+    Lp = max(32, -(-L // 32) * 32)
+    words = Lp // 16
+    rl = np.asarray(rlens, dtype=np.int32)
+    cp = np.full((R, Lp), 4, dtype=np.uint8)
+    cp[:, :L] = codes
+    in_read = np.arange(Lp, dtype=np.int32)[None, :] < rl[:, None]
+    c2 = np.where(in_read, np.minimum(cp, 3), 3).astype(np.uint32)
+    isn = ((cp > 3) & in_read).astype(np.uint32)
+    buf = np.zeros((R, words + 1), dtype=np.uint32)
+    nmask = np.zeros((R, words // 2), dtype=np.uint32)
+    for k in range(16):
+        buf[:, :words] |= c2[:, k::16] << np.uint32(2 * (15 - k))
+    for k in range(32):
+        nmask |= isn[:, k::32] << np.uint32(31 - k)
+    buf[:, words] = rl.view(np.uint32)
+    return buf, nmask, Lp
