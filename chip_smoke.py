@@ -7,33 +7,50 @@ Needs one CUDA card, ``nvcc`` and a C++ compiler; imports no JAX. From
 the root of a checkout it:
 
 1. builds the CUDA kernels of ``dart_tpu_torch/csrc`` and prints the
-   seconds the build took;
+   seconds the build took; meanwhile a child process generates
+   ``bench.py``'s ``50mbp_se`` set (for phases 5 and 6);
 2. holds each kernel against its plain PyTorch version on the card,
-   exactly (integers, bit for bit): the locate kernel on every row of
-   the toy index and on 2^16 random rows of the 8 Mbp index, the seed
-   scan on 4096 reads of the 8 Mbp set with mismatches, N bases and
-   reads shorter than 14 mixed in; then times both at the main path's
-   shapes (65536 reads of 128 padded bases; 65536 rows);
+   exactly (integers, bit for bit): the locate kernels (narrow and wide)
+   on every row of the toy index and on 2^16 random rows of the 8 Mbp
+   index; the seed scans (narrow with and without the K = 11 K-mer
+   table, wide with it) on 4096 reads of the 8 Mbp set with mismatches,
+   N bases and reads shorter than 14 mixed in, the narrow scan with the
+   table also against the one without; the narrow K-mer table build,
+   whole; then times every kernel and its plain version at the main
+   path's shapes (65536 reads of 128 padded bases; 65536 rows; one
+   K = 11 table);
 3. runs the nine golden configs through ``dart-tpu-torch --device
-   cuda`` and requires SAM and ``junctions.tab`` byte-equal to
-   ``tests/golden/``;
+   cuda`` (narrow engine, K-mer table on) and through ``DartAligner``
+   with the wide engine forced, and requires SAM and ``junctions.tab``
+   byte-equal to ``tests/golden/``;
 4. aligns ``bench.py``'s ``8mbp_se`` set (8 Mbp two-chromosome genome,
    100,000 100-bp reads: 70% genomic, 30% spliced, 0.5% mismatches,
    generated from bench.py's seed into ``chip_smoke_work/``) on the
-   card, prints wall time, reads/s and the kernels' launch counts, and
-   requires the first 5,000 reads' SAM and junction table to equal the
-   NumPy engine's of ``dart_tpu``.
+   card with the narrow and with the wide engine, prints wall time,
+   reads/s, set-up seconds and the kernels' launch counts, requires the
+   two SAMs equal and the first 5,000 reads' SAM and junction table of
+   each engine equal to the NumPy engine's of ``dart_tpu``;
+5. on the 50 Mbp index (``50mbp_se``: a 30 + 20 Mbp genome, same read
+   mix; its 125 MB narrow table is past the 50 MB L2) holds the wide
+   K-mer table build against its plain version, whole, and times every
+   kernel and its plain version at the same shapes as phase 2;
+6. aligns ``50mbp_se``'s 100,000 reads with the narrow and with the wide
+   engine (K-mer table on) and requires the whole SAM and junction
+   table byte-equal between the two.
 
-The line before the last is a JSON object with each kernel's launches on
-the main path (phase 4), its largest difference from the plain version,
-and both times. The last line is ``{"ok": true, "device": {...}}``; it
-is printed only when every phase passed, and the exit code is 0 only
-then.
+Every engine of a main-path run (phases 4 and 6) is made inside that
+run, so its launch counts start at 0 there; the checks and timings of
+phases 2 and 5 use engines of their own. The line before the last is a
+JSON object with each kernel's launches on the main path of phase 4,
+its largest difference from the plain version, and both times at the
+8 Mbp index. The last line is ``{"ok": true, "device": {...}}``; it is
+printed only when every phase passed, and the exit code is 0 only then.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import os
@@ -52,6 +69,10 @@ SOURCE = "dart_tpu_torch/csrc/fm_kernels.cu"
 KERNELS = {  # name -> the TPU device program it replaces
     "seed_scan": "dart_tpu/ops/fm_jax.py:819",
     "locate": "dart_tpu/ops/fm_jax.py:1172",
+    "lut_build": "dart_tpu/ops/fm_jax.py:128",
+    "seed_scan_wide": "dart_tpu/ops/fm_jax_wide.py:324",
+    "locate_wide": "dart_tpu/ops/fm_jax_wide.py:732",
+    "lut_build_wide": "dart_tpu/ops/fm_jax_wide.py:303",
 }
 GOLDEN = {  # tests/test_parity.py's nine configs, as CLI flags
     "c1_se_exact": ["-f", "se_exact.fa"],
@@ -65,6 +86,7 @@ GOLDEN = {  # tests/test_parity.py's nine configs, as CLI flags
     "c9_unique": ["-f", "se_mm.fq", "-unique", "-mis", "5"],
 }
 MAIN_R, MAIN_LP = 65536, 128  # the main path's seed-scan shape
+LUT_K = 11  # the K-mer table's K on a card (dart_tpu_torch.aligner)
 N_PARITY = 5000
 
 
@@ -72,14 +94,37 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def make_dataset():
-    """bench.py's 8mbp_se genome, reads and index (bench.ensure_dataset,
-    its seed and generators) under WORK."""
+def bench_env() -> None:
     os.environ["DART_TPU_BENCH_DIR"] = WORK
-    sys.path.insert(0, HERE)
+    if HERE not in sys.path:
+        sys.path.insert(0, HERE)
+
+
+def make_dataset(name: str = "8mbp_se"):
+    """bench.py's genome, reads and index of config ``name``
+    (bench.ensure_dataset, its seed and generators) under WORK."""
+    bench_env()
     import bench
 
-    return bench.ensure_dataset("8mbp_se", bench.CONFIGS["8mbp_se"])
+    return bench.ensure_dataset(name, bench.CONFIGS[name])
+
+
+def start_dataset(name: str) -> subprocess.Popen:
+    """make_dataset(name) in a child process, to overlap with the card."""
+    bench_env()
+    return subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
+         " import chip_smoke; chip_smoke.make_dataset(sys.argv[2])",
+         HERE, name], cwd=HERE, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True)
+
+
+def finish_dataset(proc: subprocess.Popen, name: str):
+    _, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"generating {name} failed ({proc.returncode}):\n"
+                           f"{err[-3000:]}")
+    return make_dataset(name)  # all files exist now: returns their paths
 
 
 def read_fastq(path: str, n: int):
@@ -117,14 +162,28 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def timed_once(fn):
+    """(fn(), its device time in ms): one run, no warm-up, for the
+    plain versions, whose one run takes seconds."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
 def check_equal(name: str, got, want) -> int:
-    if got.shape != want.shape:
-        raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
-                             f"{tuple(want.shape)}")
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} != "
+                             f"{want.dtype} {tuple(want.shape)}")
     err = max_abs_err(got, want)
     if err:
         bad = int((got != want).any(dim=-1).sum() if got.dim() > 1
@@ -134,29 +193,66 @@ def check_equal(name: str, got, want) -> int:
     return err
 
 
-def phase_kernels(toy, big, ds, device: str, n_scan: int, n_rows: int,
-                  main_r: int, seed: int) -> dict:
-    """Kernel vs plain on the card, exact; then both timed."""
+def pack(codes, rlens, device: str):
+    """Reads as the engine's seed-scan input tensor: (t, words, S)."""
     import numpy as np
     import torch
 
     from dart_tpu_torch.ops.fm_torch import FMIndexTorch, pack_codes
 
+    buf, nmask, Lp = pack_codes(codes, rlens)
+    words = Lp // 16
+    host = np.concatenate([buf[:, :words], nmask, buf[:, words:]], axis=1)
+    t = torch.from_numpy(host.view(np.int32)).to(device)
+    return t, words, FMIndexTorch.seed_slots(Lp, int(rlens.max()))
+
+
+def without_lut(eng):
+    """A view of ``eng`` (same table on the card) that scans without
+    the K-mer table."""
+    out = copy.copy(eng)
+    out.lut, out.lut_k = None, 0
+    return out
+
+
+def phase_kernels(toy, big, ds, device: str, n_scan: int, n_rows: int,
+                  main_r: int, seed: int) -> dict:
+    """Kernel vs plain on the card, exact, narrow and wide; then every
+    kernel and its plain version timed on the 8 Mbp index."""
+    import numpy as np
+    import torch
+
+    from dart_tpu_torch.ops.fm_torch import FMIndexTorch
+
     rng = np.random.default_rng(seed)
     res = {k: {"max_abs_err": 0} for k in KERNELS}
 
-    def locate_check(eng, rows, what):
-        t = torch.from_numpy(rows.astype(np.int32)).to(device)
-        err = check_equal(f"locate {what}", eng.locate_rows(t),
-                          eng.plain_locate(t))
-        res["locate"]["max_abs_err"] = max(res["locate"]["max_abs_err"], err)
-        log(f"  locate kernel == plain on {rows.size} rows of {what}")
+    def note(name, err):
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
 
-    toy_eng = FMIndexTorch(toy, device)
-    locate_check(toy_eng, np.arange(toy.seq_len), "the toy index (all)")
-    eng = FMIndexTorch(big, device)
+    def locate_check(eng, rows, what):
+        name = "locate_wide" if eng.wide else "locate"
+        t = torch.from_numpy(rows.astype(np.int64 if eng.wide else np.int32))
+        t = t.to(device)
+        note(name, check_equal(f"{name} {what}", eng.locate_rows(t),
+                               eng.plain_locate(t)))
+        log(f"  {name} kernel == plain on {rows.size} rows of {what}")
+
+    for wide in (False, True):
+        locate_check(FMIndexTorch(toy, device, wide=wide),
+                     np.arange(toy.seq_len), "the toy index (all)")
+    engs = {wide: FMIndexTorch(big, device, lut_k=LUT_K, wide=wide)
+            for wide in (False, True)}
+    log(f"  8 Mbp engines: narrow set-up {fmt_setup(engs[False])}, wide "
+        f"{fmt_setup(engs[True])}")
     rows = rng.integers(0, big.seq_len, n_rows)
-    locate_check(eng, rows, "the 8 Mbp index (random)")
+    for eng in engs.values():
+        locate_check(eng, rows, "the 8 Mbp index (random)")
+    note("lut_build", check_equal("lut_build (K=11, 8 Mbp)", engs[False].lut,
+                                  engs[False].plain_build_lut()))
+    log(f"  lut_build kernel == plain, whole K={LUT_K} table of the 8 Mbp "
+        f"index ({int((engs[False].lut[:, 2] == 0).sum())} of "
+        f"{4**LUT_K} K-mers dead)")
 
     codes, rlens = read_fastq(ds["fq"][0], max(n_scan, main_r))
     sc, sl = codes[:n_scan].copy(), rlens[:n_scan].copy()
@@ -167,45 +263,107 @@ def phase_kernels(toy, big, ds, device: str, n_scan: int, n_rows: int,
     sc[with_n, rng.integers(0, L, int(with_n.sum()))] = 4
     short = rng.random(R) < 0.05
     sl[short] = rng.integers(1, 14, int(short.sum()))
-    buf, nmask, Lp = pack_codes(sc.astype(np.uint8), sl)
-    S = eng.seed_slots(Lp, int(sl.max()))
-    words = Lp // 16
-    t = torch.from_numpy(np.concatenate([buf[:, :words], nmask, buf[:, words:]],
-                                        axis=1).view(np.int32)).to(device)
-    got = eng.seed_scan(t, words, S)
-    want = eng.plain_seed_scan(t, words, S)
-    res["seed_scan"]["max_abs_err"] = check_equal("seed scan", got, want)
-    nseeds = got[:, 0].long()
-    log(f"  seed scan kernel == plain on {R} reads "
+    t, words, S = pack(sc.astype(np.uint8), sl, device)
+    plain_nolut = without_lut(engs[False]).plain_seed_scan(t, words, S)
+    err = check_equal("seed_scan without LUT",
+                      without_lut(engs[False]).seed_scan(t, words, S),
+                      plain_nolut)
+    note("seed_scan", err)
+    for wide, eng in engs.items():
+        name = "seed_scan_wide" if wide else "seed_scan"
+        got = eng.seed_scan(t, words, S)
+        note(name, check_equal(f"{name} with LUT", got,
+                               eng.plain_seed_scan(t, words, S)))
+        check_equal(f"{name} with LUT vs seed_scan without", got.long(),
+                    plain_nolut.long())
+    nseeds = plain_nolut[:, 0].long()
+    log(f"  seed_scan kernel == plain without and with the K={LUT_K} table, "
+        f"and seed_scan_wide with it, on {R} reads "
         f"({int(with_n.sum())} with N, {int(short.sum())} shorter than 14, "
         f"{int(nseeds.sum())} seeds, "
-        f"{int((got[:, 1 + 3 * S:] == -1).sum())} by locate-and-compare)")
+        f"{int((plain_nolut[:, 1 + 3 * S:] == -1).sum())} by "
+        "locate-and-compare); all three scans give the same seeds")
 
-    # times at the main path's shapes
-    buf, nmask, Lp = pack_codes(codes[:main_r], rlens[:main_r])
-    if Lp != MAIN_LP and main_r == MAIN_R:
-        raise AssertionError(f"expected {MAIN_LP} padded bases, got {Lp}")
-    words = Lp // 16
-    S = eng.seed_slots(Lp, int(rlens[:main_r].max()))
-    t = torch.from_numpy(np.concatenate([buf[:, :words], nmask, buf[:, words:]],
-                                        axis=1).view(np.int32)).to(device)
-    got = eng.seed_scan(t, words, S)
-    check_equal("seed scan (main shape)", got, eng.plain_seed_scan(t, words, S))
-    rows_t = torch.from_numpy(
-        rng.integers(0, big.seq_len, main_r).astype(np.int32)).to(device)
     if device == "cuda":
-        res["seed_scan"]["ms"] = time_ms(lambda: eng.seed_scan(t, words, S), 5)
-        res["seed_scan"]["plain_ms"] = time_ms(
-            lambda: eng.plain_seed_scan(t, words, S), 1)
-        res["locate"]["ms"] = time_ms(lambda: eng.locate_rows(rows_t), 20)
-        res["locate"]["plain_ms"] = time_ms(
-            lambda: eng.plain_locate(rows_t), 3)
-        log(f"  seed scan at R={main_r}, Lp={Lp}, S={S}: kernel "
-            f"{res['seed_scan']['ms']:.3f} ms, plain "
-            f"{res['seed_scan']['plain_ms']:.3f} ms")
-        log(f"  locate at N={main_r} random rows: kernel "
-            f"{res['locate']['ms']:.4f} ms, plain "
-            f"{res['locate']['plain_ms']:.3f} ms")
+        times = main_shape_times(engs, codes[:main_r], rlens[:main_r], rng,
+                                 device, "8 Mbp")
+        for k, v in times.items():
+            note(k, v.pop("max_abs_err"))
+            res[k].update(v)
+    return res
+
+
+def fmt_setup(eng) -> str:
+    return (f"table {eng.setup_s['table']:.3f} s + LUT "
+            f"{eng.setup_s['lut']:.3f} s")
+
+
+def main_shape_times(engs, codes, rlens, rng, device: str, what: str) -> dict:
+    """Each kernel and its plain version at the main path's shapes, on
+    the engines' index: the seed scans on the reads (with the K-mer
+    table; the narrow one also without), the locates on as many random
+    rows, one K-mer table build. Each plain run is also held against
+    the kernel's result."""
+    import numpy as np
+    import torch
+
+    t, words, S = pack(codes, rlens, device)
+    if len(rlens) == MAIN_R and words * 16 != MAIN_LP:
+        raise AssertionError(f"expected {MAIN_LP} padded bases, got "
+                             f"{words * 16}")
+    out = {}
+    for wide, eng in engs.items():
+        sfx = "_wide" if wide else ""
+        rows = torch.from_numpy(rng.integers(0, eng.seq_len, len(rlens)))
+        rows = rows.to(eng.idx_dtype).to(device)
+        jobs = {
+            "seed_scan": (lambda: eng.seed_scan(t, words, S),
+                          lambda: eng.plain_seed_scan(t, words, S), 5),
+            "locate": (lambda: eng.locate_rows(rows),
+                       lambda: eng.plain_locate(rows), 20),
+            "lut_build": (lambda: eng.build_lut(),
+                          lambda: eng.plain_build_lut(), 3),
+        }
+        for name, (kern, plain, reps) in jobs.items():
+            ms = time_ms(kern, reps)
+            want, plain_ms = timed_once(plain)
+            err = check_equal(f"{name}{sfx} ({what}, timing shape)", kern(),
+                              want)
+            out[name + sfx] = {"ms": ms, "plain_ms": plain_ms,
+                               "max_abs_err": err}
+            log(f"  {name}{sfx} on the {what} index: kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.3f} ms")
+    nolut = without_lut(engs[False])
+    ms = time_ms(lambda: nolut.seed_scan(t, words, S), 5)
+    out["seed_scan"]["ms_without_lut"] = ms
+    log(f"  seed_scan without the K-mer table on the {what} index: kernel "
+        f"{ms:.4f} ms (R={len(rlens)}, Lp={words * 16}, S={S})")
+    return out
+
+
+def phase_kernels50(big50, ds50, device: str, seed: int) -> dict:
+    """The wide K-mer table build held against its plain version on the
+    50 Mbp index, whole; then every kernel timed there."""
+    import numpy as np
+
+    from dart_tpu_torch.ops.fm_torch import FMIndexTorch
+
+    engs = {wide: FMIndexTorch(big50, device, lut_k=LUT_K, wide=wide)
+            for wide in (False, True)}
+    mb = {w: e.table.numel() * 4e-6 for w, e in engs.items()}
+    log(f"  50 Mbp engines: narrow set-up {fmt_setup(engs[False])}, wide "
+        f"{fmt_setup(engs[True])}; tables {mb[False]:.1f} MB narrow, "
+        f"{mb[True]:.1f} MB wide")
+    res = {"lut_build_wide": check_equal(
+        "lut_build_wide (K=11, 50 Mbp)", engs[True].lut,
+        engs[True].plain_build_lut())}
+    log(f"  lut_build_wide kernel == plain, whole K={LUT_K} table of the "
+        "50 Mbp index")
+    if device == "cuda":
+        codes, rlens = read_fastq(ds50["fq"][0], MAIN_R)
+        res["times"] = main_shape_times(engs, codes, rlens,
+                                        np.random.default_rng(seed), device,
+                                        "50 Mbp")
     return res
 
 
@@ -225,43 +383,56 @@ def same_bytes(a: str, b: str) -> bool:
         return fa.read() == fb.read()
 
 
-def phase_goldens(device: str) -> None:
+def phase_goldens(toy, device: str) -> None:
+    """The nine goldens through the CLI (narrow engine, K-mer table on)
+    and through DartAligner with the wide engine forced."""
+    from dart_tpu.cli import parse_args
+
+    from dart_tpu_torch.aligner import default_lut_k, run
+
     out = os.path.join(WORK, "golden")
     os.makedirs(out, exist_ok=True)
-    toy = os.path.join(GOLD, "index", "toy")
+    prefix = os.path.join(GOLD, "index", "toy")
     for name, flags in GOLDEN.items():
         flags = [os.path.join(DATA, f) if f.endswith((".fa", ".fq", ".gz"))
                  else f for f in flags]
-        sam = os.path.join(out, f"{name}.sam")
-        tab = os.path.join(out, f"{name}.junctions.tab")
-        run_cli(["-i", toy, *flags, "-o", sam, "-j", tab, "-silent",
-                 "--device", device])
-        for got, gold in ((sam, f"{name}.sam"),
-                          (tab, f"{name}.junctions.tab")):
-            if not same_bytes(got, os.path.join(GOLD, gold)):
-                raise AssertionError(f"{name}: {gold} differs from golden")
-        log(f"  {name}: SAM and junctions.tab byte-equal to golden")
+        for how in ("cli", "wide"):
+            sam = os.path.join(out, f"{name}.{how}.sam")
+            tab = os.path.join(out, f"{name}.{how}.junctions.tab")
+            argv = ["-i", prefix, *flags, "-o", sam, "-j", tab, "-silent"]
+            if how == "cli":
+                run_cli([*argv, "--device", device])
+            else:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    eng = run(toy, parse_args(argv), device, wide=True).engine
+                if not eng.wide or eng.lut_k != default_lut_k(device):
+                    raise AssertionError("expected the wide engine with the "
+                                         "K-mer table")
+            for got, gold in ((sam, f"{name}.sam"),
+                              (tab, f"{name}.junctions.tab")):
+                if not same_bytes(got, os.path.join(GOLD, gold)):
+                    raise AssertionError(f"{name} ({how}): {gold} differs "
+                                         "from golden")
+        log(f"  {name}: SAM and junctions.tab byte-equal to golden, through "
+            "the CLI and through the wide engine")
 
 
-def phase_scale(big, ds, device: str, n_parity: int) -> dict:
-    """The 8mbp_se set through the CLI path; then its first n_parity
-    reads against dart_tpu's NumPy engine."""
-    from dart_tpu.aligner import DartAligner
+def align(idx, ds, out: str, tag: str, device: str, wide: bool) -> dict:
+    """One main-path run over the whole read set: the engine (and its
+    launch counts, which start at 0) is made inside it. Logs and
+    returns wall time, reads/s, set-up seconds and launch counts."""
     from dart_tpu.cli import parse_args
 
-    from dart_tpu_torch.aligner import run
+    from dart_tpu_torch.aligner import default_lut_k, run
 
-    out = os.path.join(WORK, "scale")
-    os.makedirs(out, exist_ok=True)
-    fq = ds["fq"][0]
     err = io.StringIO()
-    cfg = parse_args(["-i", ds["prefix"], "-f", fq, "-o",
-                      os.path.join(out, "all.sam"), "-j",
-                      os.path.join(out, "all.tab"), "-silent", "--stats"])
+    cfg = parse_args(["-i", ds["prefix"], "-f", ds["fq"][0], "-o",
+                      os.path.join(out, f"{tag}.sam"), "-j",
+                      os.path.join(out, f"{tag}.tab"), "-silent", "--stats"])
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()), \
             contextlib.redirect_stderr(err):
-        aligner = run(big, cfg, device)
+        aligner = run(idx, cfg, device, wide=wide)
     if device == "cuda":
         import torch
 
@@ -269,44 +440,83 @@ def phase_scale(big, ds, device: str, n_parity: int) -> dict:
     wall = time.perf_counter() - t0
     eng = aligner.engine
     n = aligner.counters["total"]
-    log(f"  {n} reads in {wall:.3f} s wall incl. table build and upload "
-        f"({n / wall:.0f} reads/s); seed-scan launches "
-        f"{eng.n_seed_launches}, locate launches {eng.n_locate_launches}")
+    log(f"  {tag}: {n} reads in {wall:.3f} s wall incl. set-up "
+        f"({n / wall:.0f} reads/s); set-up {fmt_setup(eng)}; launches "
+        + ", ".join(f"{k} {v}" for k, v in eng.launches.items()))
     for line in err.getvalue().splitlines():
         if line.startswith("[stats]"):
-            log(f"  {line}")
-    if eng.n_seed_launches == 0 and device == "cuda":
-        raise AssertionError("the main path launched no seed-scan kernel")
-    if eng.n_locate_launches == 0 and device == "cuda":
-        raise AssertionError("the main path launched no locate kernel")
+            log(f"    {line}")
+    if device == "cuda":
+        for k, v in eng.launches.items():
+            if v == 0:
+                raise AssertionError(f"{tag}: the main path launched no "
+                                     f"{k} kernel")
+    if eng.wide != wide or eng.lut_k != default_lut_k(device):
+        raise AssertionError(f"{tag}: unexpected engine (wide {eng.wide}, "
+                             f"lut_k {eng.lut_k})")
     if aligner.native is None:
         raise AssertionError("the native host pipeline did not load")
+    return {"launches": eng.launches, "wall_s": wall, "reads": n,
+            "setup_s": eng.setup_s}
+
+
+def require_same(out: str, a: str, b: str, what: str) -> None:
+    for ext in ("sam", "tab"):
+        if not same_bytes(os.path.join(out, f"{a}.{ext}"),
+                          os.path.join(out, f"{b}.{ext}")):
+            raise AssertionError(f"{what}: {a}.{ext} differs from {b}.{ext}")
+
+
+def phase_scale(big, ds, device: str, n_parity: int) -> dict:
+    """The 8mbp_se set through the narrow and the wide engine; then its
+    first n_parity reads through both against dart_tpu's NumPy engine."""
+    from dart_tpu.aligner import DartAligner
+    from dart_tpu.cli import parse_args
+
+    from dart_tpu_torch.aligner import run
+
+    out = os.path.join(WORK, "scale")
+    os.makedirs(out, exist_ok=True)
+    res = {"narrow": align(big, ds, out, "narrow", device, wide=False),
+           "wide": align(big, ds, out, "wide", device, wide=True)}
+    require_same(out, "narrow", "wide", "8mbp_se")
+    log(f"  all {res['narrow']['reads']} reads: SAM and junction table "
+        "byte-equal between the narrow and the wide engine")
 
     head = os.path.join(out, f"head{n_parity}.fq")
-    with open(fq, "rb") as f, open(head, "wb") as g:
+    with open(ds["fq"][0], "rb") as f, open(head, "wb") as g:
         for i, line in enumerate(f):
             if i == 4 * n_parity:
                 break
             g.write(line)
-    for who in ("port", "numpy"):
+    for who in ("numpy", "port", "port_wide"):
         cfg = parse_args(["-i", ds["prefix"], "-f", head, "-o",
                           os.path.join(out, f"{who}.sam"), "-j",
                           os.path.join(out, f"{who}.tab"), "-silent"])
         with contextlib.redirect_stdout(io.StringIO()):
-            if who == "port":
-                run(big, cfg, device)
-            else:
+            if who == "numpy":
                 cfg.engine = "numpy"
                 DartAligner(big, cfg).run()
-    for ext in ("sam", "tab"):
-        if not same_bytes(os.path.join(out, f"port.{ext}"),
-                          os.path.join(out, f"numpy.{ext}")):
-            raise AssertionError(f"first {n_parity} reads: port .{ext} "
-                                 "differs from the NumPy engine's")
-    log(f"  first {n_parity} reads: SAM and junction table byte-equal to "
-        "dart_tpu's NumPy engine")
-    return {"seed_scan": eng.n_seed_launches, "locate": eng.n_locate_launches,
-            "wall_s": wall, "reads": n}
+            else:
+                run(big, cfg, device, wide=who == "port_wide")
+    for who in ("port", "port_wide"):
+        require_same(out, who, "numpy", f"first {n_parity} reads")
+    log(f"  first {n_parity} reads: SAM and junction table of both engines "
+        "byte-equal to dart_tpu's NumPy engine")
+    return res
+
+
+def phase_scale50(big50, ds50, device: str) -> dict:
+    """The 50mbp_se set through the narrow and the wide engine, whole
+    outputs byte-equal."""
+    out = os.path.join(WORK, "scale50")
+    os.makedirs(out, exist_ok=True)
+    res = {"narrow": align(big50, ds50, out, "narrow", device, wide=False),
+           "wide": align(big50, ds50, out, "wide", device, wide=True)}
+    require_same(out, "narrow", "wide", "50mbp_se")
+    log(f"  all {res['narrow']['reads']} reads: SAM and junction table "
+        "byte-equal between the narrow and the wide engine")
+    return res
 
 
 def main() -> int:
@@ -343,27 +553,46 @@ def main() -> int:
         lib, secs = build.build()
         build.load()
         log(f"  {os.path.relpath(lib, HERE)}: built in {secs:.1f} s")
+        return secs
 
-    phase("build", do_build)
-    phase("dataset", make_dataset)
-    if "dataset" in state:
-        ds = state["dataset"]
-        toy = load_index(os.path.join(GOLD, "index", "toy"))
-        big = load_index(ds["prefix"])
-        if "build" in state:
+    gen50 = start_dataset("50mbp_se")
+    try:
+        phase("build", do_build)
+        phase("dataset", make_dataset)
+        if "dataset" in state and "build" in state:
+            ds = state["dataset"]
+            toy = load_index(os.path.join(GOLD, "index", "toy"))
+            big = load_index(ds["prefix"])
             phase("kernels", lambda: phase_kernels(
                 toy, big, ds, "cuda", 4096, 1 << 16, MAIN_R, 20260816))
-            phase("goldens", lambda: phase_goldens("cuda"))
+            phase("goldens", lambda: phase_goldens(toy, "cuda"))
             phase("scale", lambda: phase_scale(big, ds, "cuda", N_PARITY))
-    if failed or "scale" not in state:
-        log(f"chip_smoke: failed phases: {', '.join(failed) or 'none ran'}")
+        phase("dataset50", lambda: finish_dataset(gen50, "50mbp_se"))
+        if "dataset50" in state and "build" in state:
+            ds50 = state["dataset50"]
+            big50 = load_index(ds50["prefix"])
+            phase("kernels50", lambda: phase_kernels50(big50, ds50, "cuda",
+                                                       20261016))
+            phase("scale50", lambda: phase_scale50(big50, ds50, "cuda"))
+    finally:
+        if gen50.poll() is None:
+            gen50.kill()
+            gen50.wait()
+    if failed or "scale50" not in state or "scale" not in state:
+        log(f"chip_smoke: failed phases: {', '.join(failed) or 'none'}")
         return 1
-    kern = state["kernels"]
+    kern, scale = state["kernels"], state["scale"]
+    launches = {**scale["narrow"]["launches"], **scale["wide"]["launches"]}
+    k50 = state["kernels50"]
+    err50 = {k: v["max_abs_err"] for k, v in k50["times"].items()}
+    err50["lut_build_wide"] = max(err50["lut_build_wide"],
+                                  k50["lut_build_wide"])
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE, "replaces": KERNELS[k],
-         "launches": state["scale"][k],
-         "max_abs_err": kern[k]["max_abs_err"], "ms": kern[k]["ms"],
-         "plain_ms": kern[k]["plain_ms"]} for k in KERNELS]}))
+         "launches": launches[k],
+         "max_abs_err": max(kern[k]["max_abs_err"], err50[k]),
+         "ms": kern[k]["ms"], "plain_ms": kern[k]["plain_ms"]}
+        for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,10 +5,12 @@ host-side modules of ``dart_tpu`` (index loader and builder, FASTX
 readers, the native C++ packer and pipeline, SAM/BAM writers, CLI
 parser, ``DartAligner``) contain no JAX and are imported as they are.
 This package replaces only the device engine: the FM-index tables on
-the card (``ops.layout``), the seed-scan and SA-locate kernels written
-by hand in CUDA (``csrc/fm_kernels.cu``, built by ``ops.build``), their
-plain PyTorch versions (``ops.fm_plain``), and the engine that serves
-them to the shared seeding code (``ops.fm_torch.FMIndexTorch``).
+the card (``ops.layout``, narrow below 2^31 text positions and wide
+from there on), the seed-scan, SA-locate and K-mer table kernels
+written by hand in CUDA (``csrc/fm_kernels.cu``, built by
+``ops.build``), their plain PyTorch versions (``ops.fm_plain``), and
+the engine that serves them to the shared seeding code
+(``ops.fm_torch.FMIndexTorch``).
 
 This package imports ``torch`` and never ``jax``.
 """

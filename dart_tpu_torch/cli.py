@@ -2,7 +2,10 @@
 
 Takes every flag of ``dart-tpu`` (parsed by ``dart_tpu.cli.parse_args``)
 plus ``--device DEV`` (default ``cuda``; ``cpu`` runs the plain PyTorch
-kernels). Without a card, ``cuda`` raises rather than falling back.
+kernels). Without a card, ``cuda`` raises rather than falling back. The
+engine follows the index (wide from 2^31 text positions on) and the
+device (K-mer table of K = 11 on ``cuda``), as ``aligner.make_engine``
+chooses them.
 """
 
 from __future__ import annotations

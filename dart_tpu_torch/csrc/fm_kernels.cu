@@ -1,23 +1,45 @@
 // FM-index kernels of the aligner's main path, for Hopper (sm_90a).
 //
-// dart_fm_seed_scan replaces dart_tpu/ops/fm_jax.py::_seed_scan_kernel
-// (plain one-character walk init, locate-and-compare extension on), and
-// dart_fm_locate replaces fm_jax.py::_locate_kernel. Both read the merged
-// table built by dart_tpu_torch/ops/layout.py: 8 uint32 words per row,
-// Occ rows [occA occC occG occT | 64 BWT bases, 16 per word, top first],
-// then the 2-bit packed genome from row ref_off, then the SA samples (int32,
-// 8 per row) from row sad_off.
+// Each kernel is a template on the table layout, instantiated twice:
 //
-// What bounds them: each step of a lane is a gather of one 32-byte row
-// whose address depends on the previous step. The work per row is a few
+//   Narrow (int state, fwd+rc text below 2^31): dart_fm_seed_scan replaces
+//   dart_tpu/ops/fm_jax.py::_seed_scan_kernel, dart_fm_locate replaces
+//   fm_jax.py::_locate_kernel and dart_fm_lut_build replaces
+//   fm_jax.py::build_lut / _lut_extend. The merged table (built by
+//   dart_tpu_torch/ops/layout.py) has 8 uint32 words per row: Occ rows
+//   [occA occC occG occT | 64 BWT bases, 16 per word, top first], then the
+//   2-bit packed genome from row ref_off (128 bases a row), then the SA
+//   samples (int32, 8 per row) from row sad_off.
+//
+//   Wide (int64 state, any text, required from 2^31 on): dart_fm_*_wide
+//   replace fm_jax_wide.py::_seed_scan_kernel_wide, _locate_kernel_wide and
+//   build_lut_wide / _lut_extend_wide. Rows are 16 words: Occ rows
+//   [occ lo x4 | occ hi x4 | 128 BWT bases], genome rows of 256 bases,
+//   sample rows [lo x8 | hi x8]. The TPU form's (lo, hi) uint32 pair
+//   arithmetic becomes plain int64: every position, row, count, L2 entry
+//   and table offset is a long long, and so is every address computation
+//   (the GRCh38 table is 7.71 GB, past 2^32 bytes).
+//
+// The K-mer table (LUT) holds, for each K-mer, the bidirectional interval
+// after the walk from its first base has taken its other K - 1 bases, or
+// zeros once the walk died: [x0 x1 x2 0] uint32 narrow, [x0 x1 x2] int64
+// wide. lut_build_kernel walks one K-mer per thread with the extension
+// step the seed scan uses, in one launch; a walk from a given prefix is
+// deterministic, so this gives the TPU form's level-by-level table. With a
+// LUT, the seed scan starts each walk K bases in.
+//
+// What bounds them: each step of a lane is a gather of one table row whose
+// address depends on the previous step. The work per row is a few
 // popcounts, so the kernels are bound by the latency of those dependent
 // gathers, not by bandwidth: an 8 Mbp genome's table is ~20 MB and sits in
-// the 50 MB L2. The design answers latency with parallelism: one thread per
-// read (or per row to locate), a plain sequential loop in each thread, 128
+// the 50 MB L2; a 50 Mbp one (125 MB) and GRCh38's do not, and there each
+// step costs a DRAM round trip, which the LUT saves K - 1 times a walk. The
+// design answers latency with parallelism: one thread per read (or per row
+// to locate, or per K-mer), a plain sequential loop in each thread, 128
 // threads a block, so that tens of thousands of independent gathers are in
-// flight at once. A row is read as two 16-byte loads. The TPU form's merged
-// 2R-row gather, select trees, one-hot reductions and masks for every mode
-// are not carried over: a thread simply branches.
+// flight at once. A row is read as 16-byte loads (two narrow, four wide).
+// The TPU form's merged 2R-row gather, select trees, one-hot reductions and
+// masks for every mode are not carried over: a thread simply branches.
 //
 // Each C entry launches on the given stream, does not synchronise, and
 // returns cudaGetLastError().
@@ -30,19 +52,21 @@ namespace {
 constexpr int kThreads = 128;
 
 // Host params, in this order: L2[0..4], primary, sa_intv, sad_off, ref_off,
-// seq_len, max_dup.
+// seq_len, max_dup; int narrow, long long wide.
+template <class I>
 struct FmParams {
-  int L2[5];
-  int primary;
-  int sa_intv;
-  int sad_off;
-  int ref_off;
-  int seq_len;
-  int max_dup;
+  I L2[5];
+  I primary;
+  I sa_intv;
+  I sad_off;
+  I ref_off;
+  I seq_len;
+  I max_dup;
 };
 
-FmParams make_params(const int* h) {
-  FmParams p;
+template <class I>
+FmParams<I> make_params(const I* h) {
+  FmParams<I> p;
   for (int i = 0; i < 5; ++i) p.L2[i] = h[i];
   p.primary = h[5];
   p.sa_intv = h[6];
@@ -57,74 +81,198 @@ __device__ __forceinline__ uint32_t sel4(const uint4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
+struct Narrow {
+  using I = int;
+  static constexpr int kVecs = 2;  // 16-byte vectors per table row (4 words
+                                   // each); a genome row is 16 * 4 * kVecs bases
+  static constexpr int kOccShift = 6;  // log2 of the BWT bases per Occ row
+
+  // Occ of base c at the row start
+  __device__ static int occ(const uint4* v, int c) { return (int)sel4(v[0], c); }
+
+  __device__ static int sample(const uint32_t* t, int sad_off, int srow) {
+    return (int)__ldg(t + ((size_t)sad_off + (srow >> 3)) * 8 + (srow & 7));
+  }
+
+  __device__ static void lut_load(const void* lut, uint32_t key, int& x0,
+                                  int& x1, int& x2) {
+    const uint4 e = __ldg(static_cast<const uint4*>(lut) + key);
+    x0 = (int)e.x;
+    x1 = (int)e.y;
+    x2 = (int)e.z;
+  }
+
+  __device__ static void lut_store(void* lut, long long key, int x0, int x1,
+                                   int x2) {
+    static_cast<uint4*>(lut)[key] =
+        make_uint4((uint32_t)x0, (uint32_t)x1, (uint32_t)x2, 0u);
+  }
+};
+
+struct Wide {
+  using I = long long;
+  static constexpr int kVecs = 4;
+  static constexpr int kOccShift = 7;
+
+  __device__ static long long occ(const uint4* v, int c) {
+    return (long long)sel4(v[0], c) | ((long long)sel4(v[1], c) << 32);
+  }
+
+  __device__ static long long sample(const uint32_t* t, long long sad_off,
+                                     long long srow) {
+    const uint32_t* s = t + (size_t)(sad_off + (srow >> 3)) * 16 + (srow & 7);
+    return (long long)__ldg(s) | ((long long)__ldg(s + 8) << 32);
+  }
+
+  __device__ static void lut_load(const void* lut, uint32_t key,
+                                  long long& x0, long long& x1,
+                                  long long& x2) {
+    const long long* e = static_cast<const long long*>(lut) + 3 * (size_t)key;
+    x0 = __ldg(e);
+    x1 = __ldg(e + 1);
+    x2 = __ldg(e + 2);
+  }
+
+  __device__ static void lut_store(void* lut, long long key, long long x0,
+                                   long long x1, long long x2) {
+    long long* e = static_cast<long long*>(lut) + 3 * key;
+    e[0] = x0;
+    e[1] = x1;
+    e[2] = x2;
+  }
+};
+
+template <class L>
 __device__ __forceinline__ void load_row(const uint4* __restrict__ t4,
-                                         int row, uint4& occ, uint4& w) {
-  occ = __ldg(t4 + 2 * (size_t)row);
-  w = __ldg(t4 + 2 * (size_t)row + 1);
+                                         typename L::I row,
+                                         uint4 (&v)[L::kVecs]) {
+#pragma unroll
+  for (int j = 0; j < L::kVecs; ++j)
+    v[j] = __ldg(t4 + (size_t)row * L::kVecs + j);
+}
+
+// BWT word j (runtime) of a loaded Occ row
+template <class L>
+__device__ __forceinline__ uint32_t bwt_word(const uint4 (&v)[L::kVecs],
+                                             int j) {
+  if constexpr (L::kVecs == 2) {
+    return sel4(v[1], j & 3);
+  } else {
+    // a select, not a runtime index, keeps the row in registers
+    return (j & 4) ? sel4(v[3], j & 3) : sel4(v[2], j & 3);
+  }
 }
 
 // Bases equal to the pattern's base (pat = base * 0x55555555) among the
-// first `take` (1..64) bases of the row's 4 packed words.
-__device__ __forceinline__ int count_base(const uint4& w, int take,
-                                          uint32_t pat) {
+// first `take` (1..64 narrow, 1..128 wide) bases of the row's BWT words.
+template <class L>
+__device__ __forceinline__ int count_base(const uint4 (&v)[L::kVecs],
+                                          int take, uint32_t pat) {
   int cnt = 0;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < 2 * L::kVecs; ++j) {
     const int tw = min(max(take - 16 * j, 0), 16);
     const uint32_t mask = tw == 0 ? 0u : 0xFFFFFFFFu << (32 - 2 * tw);
-    const uint32_t x = sel4(w, j) ^ pat;
+    const uint32_t x = sel4(v[L::kVecs / 2 + (j >> 2)], j & 3) ^ pat;
     cnt += __popc(~(x | (x >> 1)) & 0x55555555u & mask);
   }
   return cnt;
 }
 
 // Occ of all four bases in stored BWT [0, kk] (kk already primary-adjusted).
-__device__ __forceinline__ void occ4(const uint4* __restrict__ t4, int kk,
-                                     int o[4]) {
-  uint4 oc, w;
-  load_row(t4, kk >> 6, oc, w);
-  const int take = (kk & 63) + 1;
-  const int c1 = count_base(w, take, 0x55555555u);
-  const int c2 = count_base(w, take, 0xAAAAAAAAu);
-  const int c3 = count_base(w, take, 0xFFFFFFFFu);
-  o[0] = (int)oc.x + take - c1 - c2 - c3;
-  o[1] = (int)oc.y + c1;
-  o[2] = (int)oc.z + c2;
-  o[3] = (int)oc.w + c3;
+template <class L>
+__device__ __forceinline__ void occ4(const uint4* __restrict__ t4,
+                                     typename L::I kk, typename L::I o[4]) {
+  uint4 v[L::kVecs];
+  load_row<L>(t4, kk >> L::kOccShift, v);
+  const int take = (int)(kk & ((1 << L::kOccShift) - 1)) + 1;
+  const int c1 = count_base<L>(v, take, 0x55555555u);
+  const int c2 = count_base<L>(v, take, 0xAAAAAAAAu);
+  const int c3 = count_base<L>(v, take, 0xFFFFFFFFu);
+  o[0] = L::occ(v, 0) + take - c1 - c2 - c3;
+  o[1] = L::occ(v, 1) + c1;
+  o[2] = L::occ(v, 2) + c2;
+  o[3] = L::occ(v, 3) + c3;
+}
+
+// One backward-search extension (BWT_Search) of the bidirectional interval
+// (x0, x1, x2) by the base whose complement is ci. False, and the interval
+// untouched, when the extended pattern does not occur.
+template <class L>
+__device__ __forceinline__ bool extend(const uint4* __restrict__ t4,
+                                       const FmParams<typename L::I>& p,
+                                       int ci, typename L::I& x0,
+                                       typename L::I& x1, typename L::I& x2) {
+  using I = typename L::I;
+  const I q1 = x1 - 1, q2 = x1 - 1 + x2;
+  I tk[4], tl[4];
+  occ4<L>(t4, max(q1 - (q1 >= p.primary), (I)0), tk);
+  occ4<L>(t4, max(q2 - (q2 >= p.primary), (I)0), tl);
+  const I wi = tl[ci] - tk[ci];
+  if (wi <= 0) return false;
+  I start = x0 + (x1 <= p.primary && x1 + x2 - 1 >= p.primary);
+  for (int b = 3; b > ci; --b) start += tl[b] - tk[b];
+  x0 = start;
+  x1 = p.L2[ci] + 1 + tk[ci];
+  x2 = wi;
+  return true;
+}
+
+// k % sa_intv and k / sa_intv; the wide kernels shift and mask when the
+// interval is a power of two (64-bit division is a long software routine).
+template <class I>
+__device__ __forceinline__ I sa_rem(const FmParams<I>& p, I k) {
+  if (sizeof(I) == 8 && (p.sa_intv & (p.sa_intv - 1)) == 0)
+    return k & (p.sa_intv - 1);
+  return k % p.sa_intv;
+}
+
+template <class I>
+__device__ __forceinline__ I sa_div(const FmParams<I>& p, I k) {
+  if (sizeof(I) == 8 && (p.sa_intv & (p.sa_intv - 1)) == 0)
+    return k >> (__ffsll((long long)p.sa_intv) - 1);
+  return k / p.sa_intv;
 }
 
 // One LF step of bwt_sa (bwt_invPsi): the row of the suffix one text
 // position earlier. Row `primary` maps to 0.
-__device__ __forceinline__ int lf_step(const uint4* __restrict__ t4,
-                                       const FmParams& p, int k) {
+template <class L>
+__device__ __forceinline__ typename L::I lf_step(
+    const uint4* __restrict__ t4, const FmParams<typename L::I>& p,
+    typename L::I k) {
+  using I = typename L::I;
   if (k == p.primary) return 0;
-  const int kk = k - (k > p.primary);
-  uint4 oc, w;
-  load_row(t4, kk >> 6, oc, w);
-  const int c = (sel4(w, (kk >> 4) & 3) >> (2 * (15 - (kk & 15)))) & 3;
-  const int occ = (int)sel4(oc, c) +
-                  count_base(w, (kk & 63) + 1, (uint32_t)c * 0x55555555u);
+  const I kk = k - (k > p.primary);
+  uint4 v[L::kVecs];
+  load_row<L>(t4, kk >> L::kOccShift, v);
+  const int lo = (int)(kk & ((1 << L::kOccShift) - 1));
+  const int c = (bwt_word<L>(v, lo >> 4) >> (2 * (15 - (lo & 15)))) & 3;
+  const I occ = L::occ(v, c) + count_base<L>(v, lo + 1,
+                                              (uint32_t)c * 0x55555555u);
   return p.L2[c] + occ;
 }
 
-__device__ __forceinline__ int sa_sample(const uint4* __restrict__ t4,
-                                         const FmParams& p, int k) {
-  const int srow = k / p.sa_intv;
-  const int* s = reinterpret_cast<const int*>(t4);
-  return __ldg(s + ((size_t)p.sad_off + (srow >> 3)) * 8 + (srow & 7));
+template <class L>
+__device__ __forceinline__ typename L::I sa_sample(
+    const uint4* __restrict__ t4, const FmParams<typename L::I>& p,
+    typename L::I k) {
+  return L::sample(reinterpret_cast<const uint32_t*>(t4), p.sad_off,
+                   sa_div(p, k));
 }
 
 // SA position of row k: LF-walk to a sampled row, add its sample. A walk
 // on a valid table ends within seq_len steps; the bound only keeps a
 // corrupt table from spinning a thread forever.
-__device__ __forceinline__ int locate_row(const uint4* __restrict__ t4,
-                                          const FmParams& p, int k) {
-  int steps = 0;
-  while (k % p.sa_intv != 0 && steps <= p.seq_len) {
-    k = lf_step(t4, p, k);
+template <class L>
+__device__ __forceinline__ typename L::I locate_row(
+    const uint4* __restrict__ t4, const FmParams<typename L::I>& p,
+    typename L::I k) {
+  typename L::I steps = 0;
+  while (sa_rem(p, k) != 0 && steps <= p.seq_len) {
+    k = lf_step<L>(t4, p, k);
     ++steps;
   }
-  return steps + sa_sample(t4, p, k);
+  return steps + sa_sample<L>(t4, p, k);
 }
 
 __device__ __forceinline__ int base_at(const uint32_t* codes, int i) {
@@ -135,22 +283,38 @@ __device__ __forceinline__ bool is_n(const uint32_t* nmask, int i) {
   return (nmask[i >> 5] >> (31 - (i & 31))) & 1;
 }
 
+// The 16 bases (2 bits each, top first) of the read from base i.
+__device__ __forceinline__ uint32_t code_window(const uint32_t* codes,
+                                                int words, int i) {
+  const int qi = i >> 4, qa = (i & 15) * 2;
+  uint32_t rw = codes[qi];
+  if (qa) rw = (rw << qa) | ((qi + 1 < words ? codes[qi + 1] : 0u) >> (32 - qa));
+  return rw;
+}
+
+// The 32 N bits (top first) of the read from base i.
+__device__ __forceinline__ uint32_t n_window(const uint32_t* nmask,
+                                             int nwords, int i) {
+  const int ni = i >> 5, na = i & 31;
+  uint32_t nb = nmask[ni];
+  if (na) nb = (nb << na) | ((ni + 1 < nwords ? nmask[ni + 1] : 0u) >> (32 - na));
+  return nb;
+}
+
 // Bases of the read from `cur` that equal the genome from `goff`, up to 16,
 // capped at the ends of read and genome. N bases never match.
+template <class I>
 __device__ __forceinline__ int compare16(const uint32_t* __restrict__ ref,
                                          const uint32_t* codes,
                                          const uint32_t* nmask, int words,
-                                         int rlen, int seq_len, int cur,
-                                         int goff) {
-  const int gi = goff >> 4, ga = (goff & 15) * 2;
+                                         int rlen, I seq_len, int cur,
+                                         I goff) {
+  const I gi = goff >> 4;
+  const int ga = (int)(goff & 15) * 2;
   uint32_t gw = __ldg(ref + gi);
   if (ga) gw = (gw << ga) | (__ldg(ref + gi + 1) >> (32 - ga));
-  const int qi = cur >> 4, qa = (cur & 15) * 2;
-  uint32_t rw = codes[qi];
-  if (qa) rw = (rw << qa) | ((qi + 1 < words ? codes[qi + 1] : 0u) >> (32 - qa));
-  const int ni = cur >> 5, na = cur & 31;
-  uint32_t nb = nmask[ni];
-  if (na) nb = (nb << na) | ((ni + 1 < words / 2 ? nmask[ni + 1] : 0u) >> (32 - na));
+  const uint32_t rw = code_window(codes, words, cur);
+  const uint32_t nb = n_window(nmask, words / 2, cur);
   // the window's 16 N bits, spread to 2 bits per base like the codes
   uint32_t x = nb >> 16;
   x = (x | (x << 8)) & 0x00FF00FFu;
@@ -159,8 +323,8 @@ __device__ __forceinline__ int compare16(const uint32_t* __restrict__ ref,
   x = (x | (x << 1)) & 0x55555555u;
   const uint32_t v = (gw ^ rw) | x | (x << 1);
   const int m16 = v ? __clz(v) >> 1 : 16;
-  const int avail = min(min(16, rlen - cur), seq_len - goff);
-  return min(m16, max(avail, 0));
+  const I avail = min((I)min(16, rlen - cur), seq_len - goff);
+  return min(m16, (int)max(avail, (I)0));
 }
 
 // The reference seeding scan (IdentifySeedPairs, AlignmentCandidates.cpp):
@@ -172,12 +336,21 @@ __device__ __forceinline__ int compare16(const uint32_t* __restrict__ ref,
 // with the genome, 16 bases at a time; such a seed has freq -1 and its
 // genome position in k0.
 //
+// With the LUT (kLut), a walk starts from the table entry of the K-mer at
+// pos, K bases in; an entry that is dead, or a K-mer window holding an N
+// or running past the read, advances pos by one: that walk would have died
+// before K < 16 bases, a rejected seed.
+//
 // buf row: [codes, 16 per word | N bits, 32 per word | rlen]
-// out row: [n | rpos x S | len x S | k0 x S | freq x S]
+// out row: [n | rpos x S | len x S | k0 x S | freq x S], int narrow,
+// long long wide
+template <class L, bool kLut>
 __global__ void __launch_bounds__(kThreads)
-seed_scan_kernel(const uint4* __restrict__ t4, FmParams p,
+seed_scan_kernel(const uint4* __restrict__ t4, FmParams<typename L::I> p,
+                 const void* __restrict__ lut, int lut_k,
                  const uint32_t* __restrict__ buf, int R, int words, int S,
-                 int* __restrict__ out) {
+                 typename L::I* __restrict__ out) {
+  using I = typename L::I;
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
   const int stride = words + words / 2 + 1;
@@ -185,26 +358,44 @@ seed_scan_kernel(const uint4* __restrict__ t4, FmParams p,
   const uint32_t* nmask = codes + words;
   const int rlen = (int)codes[stride - 1];
   const uint32_t* ref = reinterpret_cast<const uint32_t*>(t4) +
-                        (size_t)p.ref_off * 8;
-  int* o = out + (size_t)r * (1 + 4 * S);
+                        (size_t)p.ref_off * (4 * L::kVecs);
+  I* o = out + (size_t)r * (1 + 4 * S);
   for (int s = 1; s <= 4 * S; ++s) o[s] = 0;
 
   const int end_pos = max(rlen - 13, 0);
   int n = 0;
   int pos = 0;
   while (pos < end_pos) {
-    if (is_n(nmask, pos)) {
-      ++pos;
-      continue;
+    I x0, x1, x2;
+    int cur;
+    if (kLut) {
+      x2 = 0;
+      if ((n_window(nmask, words / 2, pos) >> (32 - lut_k)) == 0 &&
+          pos + lut_k <= rlen)
+        L::lut_load(lut, code_window(codes, words, pos) >> (32 - 2 * lut_k),
+                    x0, x1, x2);
+      if (x2 == 0) {
+        ++pos;
+        continue;
+      }
+      cur = pos + lut_k;
+    } else {
+      if (is_n(nmask, pos)) {
+        ++pos;
+        continue;
+      }
+      const int c = base_at(codes, pos);
+      x0 = p.L2[c] + 1;
+      x1 = p.L2[3 - c] + 1;
+      x2 = p.L2[c + 1] - p.L2[c];
+      cur = pos + 1;
     }
-    const int c = base_at(codes, pos);
-    int x0 = p.L2[c] + 1, x1 = p.L2[3 - c] + 1, x2 = p.L2[c + 1] - p.L2[c];
-    int cur = pos + 1;
-    int length, k0, freq;
+    int length;
+    I k0, freq;
     bool acc;
     for (;;) {
       if (x2 == 1 && cur < rlen) {
-        const int gbase = locate_row(t4, p, x0) - pos;
+        const I gbase = locate_row<L>(t4, p, x0) - pos;
         int m;
         do {
           m = compare16(ref, codes, nmask, words, rlen, p.seq_len, cur,
@@ -217,23 +408,10 @@ seed_scan_kernel(const uint4* __restrict__ t4, FmParams p,
         freq = -1;
         break;
       }
-      if (cur < rlen && !is_n(nmask, cur)) {
-        // backward-search extension of the bidirectional interval
-        const int ci = 3 - base_at(codes, cur);
-        const int q1 = x1 - 1, q2 = x1 - 1 + x2;
-        int tk[4], tl[4];
-        occ4(t4, max(q1 - (q1 >= p.primary), 0), tk);
-        occ4(t4, max(q2 - (q2 >= p.primary), 0), tl);
-        const int wi = tl[ci] - tk[ci];
-        if (wi > 0) {
-          int start = x0 + (x1 <= p.primary && x1 + x2 - 1 >= p.primary);
-          for (int b = 3; b > ci; --b) start += tl[b] - tk[b];
-          x0 = start;
-          x1 = p.L2[ci] + 1 + tk[ci];
-          x2 = wi;
-          ++cur;
-          continue;
-        }
+      if (cur < rlen && !is_n(nmask, cur) &&
+          extend<L>(t4, p, 3 - base_at(codes, cur), x0, x1, x2)) {
+        ++cur;
+        continue;
       }
       length = cur - pos;
       acc = x2 <= p.max_dup && length >= 16;
@@ -257,31 +435,115 @@ seed_scan_kernel(const uint4* __restrict__ t4, FmParams p,
   o[0] = n;
 }
 
+template <class L>
 __global__ void __launch_bounds__(kThreads)
-locate_kernel(const uint4* __restrict__ t4, FmParams p,
-              const int* __restrict__ rows, int n, int* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = locate_row(t4, p, rows[i]);
+locate_kernel(const uint4* __restrict__ t4, FmParams<typename L::I> p,
+              const typename L::I* __restrict__ rows, typename L::I n,
+              typename L::I* __restrict__ out) {
+  using I = typename L::I;
+  const I i = (I)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = locate_row<L>(t4, p, rows[i]);
+}
+
+// One thread per K-mer (key = base-4, first base most significant): the
+// walk from its first base, extended by each following base.
+template <class L>
+__global__ void __launch_bounds__(kThreads)
+lut_build_kernel(const uint4* __restrict__ t4, FmParams<typename L::I> p,
+                 int K, void* __restrict__ out) {
+  using I = typename L::I;
+  const long long key = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (key >= (1LL << (2 * K))) return;
+  const int c = (int)(key >> (2 * (K - 1))) & 3;
+  I x0 = p.L2[c] + 1, x1 = p.L2[3 - c] + 1, x2 = p.L2[c + 1] - p.L2[c];
+  for (int i = 1; i < K; ++i) {
+    const int b = (int)(key >> (2 * (K - 1 - i))) & 3;
+    if (x2 == 0 || !extend<L>(t4, p, 3 - b, x0, x1, x2)) {
+      x0 = x1 = x2 = 0;
+      break;
+    }
+  }
+  L::lut_store(out, key, x0, x1, x2);
+}
+
+template <class L>
+int launch_seed_scan(const void* table, const typename L::I* params,
+                     const void* lut, int lut_k, const void* buf, int R,
+                     int words, int S, void* out, void* stream) {
+  const int grid = (R + kThreads - 1) / kThreads;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto t4 = static_cast<const uint4*>(table);
+  const auto b = static_cast<const uint32_t*>(buf);
+  const auto o = static_cast<typename L::I*>(out);
+  if (lut_k > 0)
+    seed_scan_kernel<L, true><<<grid, kThreads, 0, s>>>(
+        t4, make_params(params), lut, lut_k, b, R, words, S, o);
+  else
+    seed_scan_kernel<L, false><<<grid, kThreads, 0, s>>>(
+        t4, make_params(params), nullptr, 0, b, R, words, S, o);
+  return (int)cudaGetLastError();
+}
+
+template <class L>
+int launch_locate(const void* table, const typename L::I* params,
+                  const void* rows, typename L::I n, void* out,
+                  void* stream) {
+  using I = typename L::I;
+  locate_kernel<L><<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(table), make_params(params),
+      static_cast<const I*>(rows), n, static_cast<I*>(out));
+  return (int)cudaGetLastError();
+}
+
+template <class L>
+int launch_lut_build(const void* table, const typename L::I* params, int K,
+                     void* out, void* stream) {
+  const long long n = 1LL << (2 * K);
+  lut_build_kernel<L><<<(unsigned)((n + kThreads - 1) / kThreads), kThreads,
+                        0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(table), make_params(params), K, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int dart_fm_seed_scan(const void* table, const int* params,
-                                 const void* buf, int R, int words, int S,
-                                 void* out, void* stream) {
-  seed_scan_kernel<<<(R + kThreads - 1) / kThreads, kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(table), make_params(params),
-      static_cast<const uint32_t*>(buf), R, words, S, static_cast<int*>(out));
-  return (int)cudaGetLastError();
+                                 const void* lut, int lut_k, const void* buf,
+                                 int R, int words, int S, void* out,
+                                 void* stream) {
+  return launch_seed_scan<Narrow>(table, params, lut, lut_k, buf, R, words,
+                                  S, out, stream);
+}
+
+extern "C" int dart_fm_seed_scan_wide(const void* table,
+                                      const long long* params,
+                                      const void* lut, int lut_k,
+                                      const void* buf, int R, int words,
+                                      int S, void* out, void* stream) {
+  return launch_seed_scan<Wide>(table, params, lut, lut_k, buf, R, words, S,
+                                out, stream);
 }
 
 extern "C" int dart_fm_locate(const void* table, const int* params,
                               const void* rows, int n, void* out,
                               void* stream) {
-  locate_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(table), make_params(params),
-      static_cast<const int*>(rows), n, static_cast<int*>(out));
-  return (int)cudaGetLastError();
+  return launch_locate<Narrow>(table, params, rows, n, out, stream);
+}
+
+extern "C" int dart_fm_locate_wide(const void* table, const long long* params,
+                                   const void* rows, long long n, void* out,
+                                   void* stream) {
+  return launch_locate<Wide>(table, params, rows, n, out, stream);
+}
+
+extern "C" int dart_fm_lut_build(const void* table, const int* params, int K,
+                                 void* out, void* stream) {
+  return launch_lut_build<Narrow>(table, params, K, out, stream);
+}
+
+extern "C" int dart_fm_lut_build_wide(const void* table,
+                                      const long long* params, int K,
+                                      void* out, void* stream) {
+  return launch_lut_build<Wide>(table, params, K, out, stream);
 }

@@ -70,11 +70,25 @@ def build() -> tuple[str, float]:
 
 @functools.cache
 def load() -> ctypes.CDLL:
-    """The kernel library, built if needed, with its C entries typed."""
+    """The kernel library, built if needed, with its C entries typed.
+    The wide entries take their parameter array and their row count as
+    int64: positions and counts there pass 2^31."""
     lib = ctypes.CDLL(build()[0])
-    vp, i32, ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
-    lib.dart_fm_seed_scan.restype = i32
-    lib.dart_fm_seed_scan.argtypes = [vp, ip, vp, i32, i32, i32, vp, vp]
-    lib.dart_fm_locate.restype = i32
-    lib.dart_fm_locate.argtypes = [vp, ip, vp, i32, vp, vp]
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    ip, lp = ctypes.POINTER(i32), ctypes.POINTER(i64)
+    for name, args in {
+        # table, params, lut, lut_k, buf, R, words, S, out, stream
+        "dart_fm_seed_scan": [vp, ip, vp, i32, vp, i32, i32, i32, vp, vp],
+        "dart_fm_seed_scan_wide": [vp, lp, vp, i32, vp, i32, i32, i32, vp,
+                                   vp],
+        # table, params, rows, n, out, stream
+        "dart_fm_locate": [vp, ip, vp, i32, vp, vp],
+        "dart_fm_locate_wide": [vp, lp, vp, i64, vp, vp],
+        # table, params, K, out, stream
+        "dart_fm_lut_build": [vp, ip, i32, vp, vp],
+        "dart_fm_lut_build_wide": [vp, lp, i32, vp, vp],
+    }.items():
+        fn = getattr(lib, name)
+        fn.restype = i32
+        fn.argtypes = args
     return lib

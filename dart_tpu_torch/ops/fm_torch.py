@@ -7,34 +7,62 @@
 ``_pad_up`` / ``_min_bucket`` for the packer. It defines no
 ``seed_drain``, so the shared code takes its JAX-free expansion path.
 
-On a CUDA device every scan and locate launches the hand-written kernel
-of ``csrc/fm_kernels.cu`` (or raises); on the CPU it runs the plain
-PyTorch version of ``ops.fm_plain``. Each seed round ships the N mask
-with the reads, gives every read the worst-case seed-slot count and
-runs every lane to its end in one launch.
+One class serves both table layouts of ``ops.layout``: narrow (int32
+state, the default below 2^31 text positions) and wide (int64 state,
+required from 2^31 on, as ``dart_tpu.ops.fm_jax_wide.FMIndexJaxWide``).
+With ``lut_k`` > 0 it builds the K-mer walk-state table at
+construction, as a tensor of its own beside the merged table, and every
+seed walk starts from it.
+
+On a CUDA device every scan, locate and table build launches the
+hand-written kernel of ``csrc/fm_kernels.cu`` (or raises); on the CPU
+it runs the plain PyTorch version of ``ops.fm_plain``. Each seed round
+ships the N mask with the reads, gives every read the worst-case
+seed-slot count and runs every lane to its end in one launch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import time
 
 import numpy as np
 import torch
 
 from . import build
-from .fm_plain import locate_plain, seed_scan_plain
+from .fm_plain import locate_plain, lut_build_plain, seed_scan_plain
 from .layout import tables_from_index, to_device
+
+# texts of this many positions or more need the wide (int64) engine
+WIDE_MIN_SEQ = 2**31
+# the largest K whose K-mer window fits one 32-bit code word
+MAX_LUT_K = 15
 
 
 class FMIndexTorch:
     # no compiled-shape set to keep small: chunks are not padded
     _min_bucket = 1
 
-    def __init__(self, idx, device="cuda", max_dup_num: int = 100):
+    def __init__(self, idx, device="cuda", max_dup_num: int = 100,
+                 lut_k: int = 0, wide: bool | None = None):
         self.device = torch.device(device)
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
-        tabs = tables_from_index(idx)
+        if not 0 <= lut_k <= MAX_LUT_K:
+            raise ValueError(f"lut_k must be in 0..{MAX_LUT_K}, got {lut_k}")
+        if wide is None:
+            wide = idx.seq_len >= WIDE_MIN_SEQ
+        elif not wide and idx.seq_len >= WIDE_MIN_SEQ:
+            raise ValueError("a text of 2^31 positions or more needs the "
+                             "wide engine")
+        self.wide = bool(wide)
+        self.idx_dtype = torch.int64 if self.wide else torch.int32
+        self.lut_k = int(lut_k)
+        self.n_seed_launches = 0
+        self.n_locate_launches = 0
+        self.n_lut_launches = 0
+        t0 = time.perf_counter()
+        tabs = tables_from_index(idx, wide=self.wide)
         self.primary = tabs["primary"]
         self.sa_intv = tabs["sa_intv"]
         self.ref_off = tabs["ref_off"]
@@ -43,12 +71,32 @@ class FMIndexTorch:
         self.max_dup_num = int(max_dup_num)
         dev = to_device(tabs, self.device)
         self.table, self.L2 = dev["table"], dev["L2"]
-        # the kernels' scalar arguments, in csrc's FmParams order
+        # the kernels' scalar arguments, in csrc's FmParams order: int64
+        # for the wide kernels, whose positions pass 2^31
         self._params = np.array(
             [*tabs["L2"].tolist(), self.primary, self.sa_intv, self.sad_off,
-             self.ref_off, self.seq_len, self.max_dup_num], dtype=np.int32)
-        self.n_seed_launches = 0
-        self.n_locate_launches = 0
+             self.ref_off, self.seq_len, self.max_dup_num],
+            dtype=np.int64 if self.wide else np.int32)
+        self._sync()
+        t1 = time.perf_counter()
+        # the K-mer table stays out of the merged table: its 4^K rows
+        # would spread every other gather over a larger address range
+        self.lut = self.build_lut() if self.lut_k else None
+        self._sync()
+        self.setup_s = {"table": t1 - t0,
+                        "lut": time.perf_counter() - t1}
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @property
+    def launches(self) -> dict:
+        """Launch counts by kernel name (``_wide`` for the wide ones)."""
+        sfx = "_wide" if self.wide else ""
+        return {f"seed_scan{sfx}": self.n_seed_launches,
+                f"locate{sfx}": self.n_locate_launches,
+                f"lut_build{sfx}": self.n_lut_launches}
 
     @staticmethod
     def _pad_up(n: int, floor: int = 1) -> int:
@@ -64,10 +112,10 @@ class FMIndexTorch:
 
     # ---- kernels ----
 
-    def _check(self, t: torch.Tensor, ndim: int) -> None:
-        if (t.device != self.table.device or t.dtype != torch.int32
+    def _check(self, t: torch.Tensor, ndim: int, dtype=torch.int32) -> None:
+        if (t.device != self.table.device or t.dtype != dtype
                 or t.dim() != ndim or not t.is_contiguous()):
-            raise ValueError(f"expected a contiguous {ndim}-d int32 tensor "
+            raise ValueError(f"expected a contiguous {ndim}-d {dtype} tensor "
                              f"on {self.table.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
 
@@ -79,7 +127,9 @@ class FMIndexTorch:
 
     def seed_scan(self, buf: torch.Tensor, words: int, S: int) -> torch.Tensor:
         """Seed tables of the reads in ``buf`` (R, words + words/2 + 1)
-        int32 -> (R, 1 + 4S) int32 [n | rpos | len | k0 | freq]."""
+        int32 -> (R, 1 + 4S) [n | rpos | len | k0 | freq], int32 narrow
+        and int64 wide. Walks start from the K-mer table when the engine
+        has one."""
         self._check(buf, 2)
         R = buf.shape[0]
         if buf.shape[1] != words + words // 2 + 1 or words % 2:
@@ -87,32 +137,57 @@ class FMIndexTorch:
                              f"{words} code words")
         if buf.device.type == "cpu":
             return self.plain_seed_scan(buf, words, S)
-        out = torch.empty((R, 1 + 4 * S), dtype=torch.int32,
+        out = torch.empty((R, 1 + 4 * S), dtype=self.idx_dtype,
                           device=self.device)
         if R:
-            rc = build.load().dart_fm_seed_scan(
-                self.table.data_ptr(), self._params_ptr(), buf.data_ptr(),
-                R, words, S, out.data_ptr(), self._stream())
+            lib = build.load()
+            fn = lib.dart_fm_seed_scan_wide if self.wide else \
+                lib.dart_fm_seed_scan
+            rc = fn(self.table.data_ptr(), self._params_ptr(),
+                    self.lut.data_ptr() if self.lut_k else None, self.lut_k,
+                    buf.data_ptr(), R, words, S, out.data_ptr(),
+                    self._stream())
             self._check_launch(rc, "seed scan")
             self.n_seed_launches += 1
         return out
 
     def locate_rows(self, rows: torch.Tensor) -> torch.Tensor:
-        """SA positions of BWT rows (N,) int32 -> (N,) int32."""
-        self._check(rows, 1)
+        """SA positions of BWT rows (N,) -> (N,), int32 narrow and int64
+        wide."""
+        self._check(rows, 1, self.idx_dtype)
         if rows.device.type == "cpu":
             return self.plain_locate(rows)
         out = torch.empty_like(rows)
         if rows.numel():
-            rc = build.load().dart_fm_locate(
-                self.table.data_ptr(), self._params_ptr(), rows.data_ptr(),
-                rows.numel(), out.data_ptr(), self._stream())
+            lib = build.load()
+            fn = lib.dart_fm_locate_wide if self.wide else lib.dart_fm_locate
+            rc = fn(self.table.data_ptr(), self._params_ptr(),
+                    rows.data_ptr(), rows.numel(), out.data_ptr(),
+                    self._stream())
             self._check_launch(rc, "locate")
             self.n_locate_launches += 1
         return out
 
+    def build_lut(self) -> torch.Tensor:
+        """The K-mer walk-state table for K = ``lut_k`` (> 0): (4^K, 4)
+        int32 [x0, x1, x2, 0] narrow, (4^K, 3) int64 wide; one kernel
+        launch on a CUDA device."""
+        K = self.lut_k
+        if self.device.type == "cpu":
+            return self.plain_build_lut()
+        shape = (4**K, 3) if self.wide else (4**K, 4)
+        out = torch.empty(shape, dtype=self.idx_dtype, device=self.device)
+        lib = build.load()
+        fn = lib.dart_fm_lut_build_wide if self.wide else lib.dart_fm_lut_build
+        rc = fn(self.table.data_ptr(), self._params_ptr(), K,
+                out.data_ptr(), self._stream())
+        self._check_launch(rc, "LUT build")
+        self.n_lut_launches += 1
+        return out
+
     def _params_ptr(self):
-        return self._params.ctypes.data_as(ctypes.POINTER(ctypes.c_int))
+        ct = ctypes.c_int64 if self.wide else ctypes.c_int
+        return self._params.ctypes.data_as(ctypes.POINTER(ct))
 
     def _stream(self) -> int:
         return torch.cuda.current_stream(self.device).cuda_stream
@@ -123,12 +198,18 @@ class FMIndexTorch:
         return seed_scan_plain(
             self.table, self.L2, buf, words=words, S=S, primary=self.primary,
             sa_intv=self.sa_intv, sad_off=self.sad_off, ref_off=self.ref_off,
-            seq_len=self.seq_len, max_dup=self.max_dup_num)
+            seq_len=self.seq_len, max_dup=self.max_dup_num, lut=self.lut,
+            lut_k=self.lut_k)
 
     def plain_locate(self, rows: torch.Tensor) -> torch.Tensor:
         """The plain PyTorch version of ``locate_rows`` on any device."""
         return locate_plain(self.table, self.L2, rows, primary=self.primary,
                             sa_intv=self.sa_intv, sad_off=self.sad_off)
+
+    def plain_build_lut(self) -> torch.Tensor:
+        """The plain PyTorch version of ``build_lut`` on any device."""
+        return lut_build_plain(self.table, self.L2, primary=self.primary,
+                               K=self.lut_k)
 
     # ---- engine surface of the shared seeding code ----
 
@@ -164,16 +245,17 @@ class FMIndexTorch:
         o = job["out"].cpu().numpy()
         if on_wait is not None:
             on_wait()
-        return (o[:, 0].copy(), o[:, 1:1 + S].copy(),
-                o[:, 1 + S:1 + 2 * S].copy(),
+        return (o[:, 0].astype(np.int32), o[:, 1:1 + S].astype(np.int32),
+                o[:, 1 + S:1 + 2 * S].astype(np.int32),
                 o[:, 1 + 2 * S:1 + 3 * S].astype(np.int64),
-                o[:, 1 + 3 * S:1 + 4 * S].copy())
+                o[:, 1 + 3 * S:1 + 4 * S].astype(np.int32))
 
     def locate_submit(self, rows: np.ndarray):
         """Start locating SA rows without waiting; None when empty."""
         if rows.shape[0] == 0:
             return None
-        t = torch.from_numpy(np.asarray(rows, dtype=np.int32))
+        t = torch.from_numpy(np.asarray(
+            rows, dtype=np.int64 if self.wide else np.int32))
         return self.locate_rows(t.to(self.device))
 
     def locate_finish(self, job) -> np.ndarray:

@@ -1,9 +1,9 @@
-"""FM-index tables for the card, built in NumPy from a host index.
+"""FM-index tables for the card, built on the host from an index.
 
-The layout is the one the JAX engine gathers from
-(``dart_tpu.ops.fm_jax.build_device_layout`` and
-``build_merged_table``), kept byte-equal so that both engines read the
-same rows:
+Two layouts, each kept byte-equal to the JAX engine's so that both
+engines read the same rows. The narrow one
+(``dart_tpu.ops.fm_jax.build_device_layout`` and ``build_merged_table``,
+for fwd+rc texts below 2^31), in NumPy:
 
 - one row of 8 uint32 words per 64 BWT bases: the Occ checkpoint of
   each base at the block start, then the 64 bases packed 16 per word,
@@ -16,15 +16,32 @@ same rows:
   dense ``.sad`` samples when the index has them, else the ``.sa``
   ones).
 
-Re-implemented here because the JAX module imports ``jax``.
+The wide one (``dart_tpu.ops.fm_jax_wide.build_merged_table_wide``,
+which any text length may use and texts of 2^31 or more must) keeps
+64-bit counts and positions as (lo, hi) uint32 pairs:
+
+- one row of 16 words per 128 BWT bases: [occ lo x4 | occ hi x4 | the
+  128 bases, 16 per word];
+- the genome, 16 words (256 bases) per row, plus one spare row;
+- the SA samples, 8 per row as [lo x8 | hi x8].
+
+Its Occ rows and genome words come from the native single-pass packers
+of ``dart_tpu/native/layout.cpp`` (NumPy's broadcasting takes tens of
+minutes past 2^31 elements); the NumPy bodies are their twins, taken
+when the native library does not load.
+
+Re-implemented here because the JAX modules import ``jax``.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
 BLOCK = 64  # BWT bases per Occ row
+BLOCK_W = 128  # BWT bases per wide Occ row
 
 
 def build_device_layout(idx) -> np.ndarray:
@@ -71,25 +88,112 @@ def _pack16(codes: np.ndarray) -> np.ndarray:
     return (w << shifts).sum(axis=1, dtype=np.uint64).astype(np.uint32)
 
 
-def tables_from_index(idx) -> dict:
-    """Everything the kernels read, as NumPy arrays and ints: the merged
-    ``table`` (rows, 8) uint32, ``L2`` (5,) int32, ``primary``,
-    ``sa_intv`` (the interval of the samples in the table), ``ref_off``,
-    ``sad_off`` and ``seq_len``."""
-    sa_intv = int(idx.sad_intv) if idx.sad_intv else int(idx.sa_intv)
+def _native():
+    """dart_tpu's native library (built with g++ at first use), or None
+    when it does not load; the wide layout functions then take their
+    NumPy twins."""
+    from dart_tpu.native import build as native_build
+
+    return native_build.load()
+
+
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def build_device_layout_wide(idx) -> np.ndarray:
+    """The (n_blocks, 16) uint32 wide Occ rows of the BWT."""
+    n = int(idx.seq_len)
+    n_blocks = (n + BLOCK_W - 1) // BLOCK_W
+    lib = _native()
+    if lib is not None:
+        out = np.empty((n_blocks, 16), dtype=np.uint32)
+        bwt = np.ascontiguousarray(idx.bwt, dtype=np.uint8)
+        lib.dart_wide_layout(_ptr(bwt, ctypes.c_uint8), ctypes.c_int64(n),
+                             _ptr(out, ctypes.c_uint32))
+        return out
+    padded = np.zeros(n_blocks * BLOCK_W, dtype=np.uint8)
+    padded[:n] = idx.bwt
+    per_block = np.stack(
+        [(padded.reshape(n_blocks, BLOCK_W) == c).sum(axis=1)
+         for c in range(4)], axis=1).astype(np.int64)
+    occ_start = np.zeros((n_blocks, 4), dtype=np.int64)
+    np.cumsum(per_block[:-1], axis=0, out=occ_start[1:])
+    lo, hi = _split64(occ_start)
+    return np.concatenate([lo, hi, _pack16(padded).reshape(n_blocks, 8)],
+                          axis=1)
+
+
+def _pack_ref_rows_wide(idx, n_rrows: int) -> np.ndarray:
+    """The genome codes (clamped to 3) as (n_rrows, 16) uint32 rows of
+    16-base words, zero past the end."""
+    n = int(idx.seq_len)
+    flat = np.zeros(n_rrows * 16, dtype=np.uint32)
+    lib = _native()
+    if lib is not None:
+        codes = np.ascontiguousarray(idx.ref_codes, dtype=np.uint8)
+        lib.dart_pack_codes(_ptr(codes, ctypes.c_uint8), ctypes.c_int64(n),
+                            _ptr(flat, ctypes.c_uint32))
+    else:
+        n_words = (n + 15) // 16
+        codes = np.zeros(n_words * 16, dtype=np.uint8)
+        codes[:n] = np.minimum(idx.ref_codes, 3)
+        flat[:n_words] = _pack16(codes)
+    return flat.reshape(n_rrows, 16)
+
+
+def build_merged_table_wide(idx):
+    """The wide Occ rows, genome rows and SA-sample rows in one table.
+    Returns (table (rows, 16) uint32, ref_off, sad_off)."""
+    blocks = build_device_layout_wide(idx)
+    n_blocks = blocks.shape[0]
+    n_words = (int(idx.seq_len) + 15) // 16
+    n_rrows = -(-n_words // 16) + 1  # +1: a window may read row + 1
     samples = (idx.sad_samples if idx.sad_intv
-               else idx.sa_samples).astype(np.int32)
-    table, ref_off, sad_off = build_merged_table(
-        idx, build_device_layout(idx), samples)
-    return {"table": table, "L2": np.asarray(idx.L2).astype(np.int32),
-            "primary": int(idx.primary), "sa_intv": sa_intv,
-            "ref_off": int(ref_off), "sad_off": int(sad_off),
-            "seq_len": int(idx.seq_len)}
+               else idx.sa_samples).astype(np.int64)
+    n_srows = -(-samples.shape[0] // 8)
+    pad = np.zeros(n_srows * 8, dtype=np.int64)
+    pad[: samples.shape[0]] = samples
+    lo, hi = _split64(pad)
+    sad_rows = np.concatenate([lo.reshape(n_srows, 8),
+                               hi.reshape(n_srows, 8)], axis=1)
+    table = np.concatenate([blocks, _pack_ref_rows_wide(idx, n_rrows),
+                            sad_rows])
+    return table, n_blocks, n_blocks + n_rrows
+
+
+def _split64(v: np.ndarray):
+    """int64 array -> its (lo, hi) uint32 halves."""
+    u = np.asarray(v, dtype=np.int64).view(np.uint64)
+    return ((u & 0xFFFFFFFF).astype(np.uint32),
+            (u >> np.uint64(32)).astype(np.uint32))
+
+
+def tables_from_index(idx, wide: bool = False) -> dict:
+    """Everything the kernels read, as NumPy arrays and ints: the merged
+    ``table`` ((rows, 8) uint32 narrow, (rows, 16) wide), ``L2`` (5,)
+    (int32 narrow, int64 wide), ``primary``, ``sa_intv`` (the interval
+    of the samples in the table), ``ref_off``, ``sad_off``, ``seq_len``
+    and ``wide``."""
+    sa_intv = int(idx.sad_intv) if idx.sad_intv else int(idx.sa_intv)
+    if wide:
+        table, ref_off, sad_off = build_merged_table_wide(idx)
+    else:
+        samples = (idx.sad_samples if idx.sad_intv
+                   else idx.sa_samples).astype(np.int32)
+        table, ref_off, sad_off = build_merged_table(
+            idx, build_device_layout(idx), samples)
+    L2 = np.asarray(idx.L2).astype(np.int64 if wide else np.int32)
+    return {"table": table, "L2": L2, "primary": int(idx.primary),
+            "sa_intv": sa_intv, "ref_off": int(ref_off),
+            "sad_off": int(sad_off), "seq_len": int(idx.seq_len),
+            "wide": bool(wide)}
 
 
 def to_device(tables: dict, device) -> dict:
-    """The same dict with ``table`` and ``L2`` as int32 tensors on
-    ``device`` (the table's uint32 words keep their bits)."""
+    """The same dict with ``table`` as an int32 tensor on ``device``
+    (its uint32 words keep their bits) and ``L2`` as a tensor of its
+    own type."""
     out = dict(tables)
     out["table"] = torch.from_numpy(
         np.ascontiguousarray(tables["table"]).view(np.int32)).to(device)

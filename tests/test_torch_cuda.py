@@ -1,9 +1,11 @@
 """The CUDA kernels of dart_tpu_torch on the card, held exactly against
-their plain PyTorch versions on the same device tensors, and a golden
-config aligned on the card. Marked ``cuda``: they skip without a CUDA
-device. On a machine with one: ``pytest -m cuda tests/test_torch_cuda.py``.
+their plain PyTorch versions on the same device tensors (narrow and
+wide, with and without the K-mer table), and a golden config aligned
+on the card. Marked ``cuda``: they skip without a CUDA device. On a
+machine with one: ``pytest -m cuda tests/test_torch_cuda.py``.
 """
 
+import copy
 import io
 
 import numpy as np
@@ -32,7 +34,7 @@ def test_locate_kernel_equals_plain(gpu_engine, toy_index):
     assert gpu_engine.n_locate_launches == 1
 
 
-def test_seed_scan_kernel_equals_plain(gpu_engine, toy_index):
+def _packed_reads(toy_index):
     rng = np.random.default_rng(4)
     R, L = 512, 100
     starts = rng.integers(0, toy_index.seq_len - L, R)
@@ -43,9 +45,13 @@ def test_seed_scan_kernel_equals_plain(gpu_engine, toy_index):
     rlens[::9] = rng.integers(0, 14, len(rlens[::9]))
     buf, nmask, Lp = pack_codes(codes, rlens)
     words = Lp // 16
-    S = gpu_engine.seed_slots(Lp, L)
     t = torch.from_numpy(np.concatenate(
         [buf[:, :words], nmask, buf[:, words:]], axis=1).view(np.int32)).cuda()
+    return t, words, FMIndexTorch.seed_slots(Lp, L)
+
+
+def test_seed_scan_kernel_equals_plain(gpu_engine, toy_index):
+    t, words, S = _packed_reads(toy_index)
     got = gpu_engine.seed_scan(t, words, S)
     torch.testing.assert_close(got, gpu_engine.plain_seed_scan(t, words, S),
                                rtol=0, atol=0)
@@ -70,3 +76,64 @@ def test_golden_on_card(gpu_engine, toy_index, data_dir, golden_dir,
     # every seed of this set is found by locate-and-compare inside the
     # scan, so no SA rows are left for the locate kernel
     assert engine.n_seed_launches == 1 and engine.n_locate_launches == 0
+
+
+@pytest.fixture(scope="module")
+def gpu_engines(gpu_engine, toy_index):
+    """Narrow and wide engines with the K = 11 table (built on the card
+    at construction), and a wide one without."""
+    return {"narrow_lut": FMIndexTorch(toy_index, "cuda", lut_k=11),
+            "wide_lut": FMIndexTorch(toy_index, "cuda", lut_k=11, wide=True),
+            "wide": FMIndexTorch(toy_index, "cuda", wide=True)}
+
+
+@pytest.mark.parametrize("which", ["narrow_lut", "wide_lut"])
+def test_lut_build_kernel_equals_plain(which, gpu_engines):
+    """K3 (narrow) and K6 (wide): the whole K = 11 table, exactly."""
+    eng = gpu_engines[which]
+    assert eng.n_lut_launches == 1
+    torch.testing.assert_close(eng.lut, eng.plain_build_lut(), rtol=0,
+                               atol=0)
+    assert eng.lut.dtype == (torch.int64 if eng.wide else torch.int32)
+
+
+@pytest.mark.parametrize("which", ["narrow_lut", "wide_lut", "wide"])
+def test_seed_scan_kernels_equal_plain(which, gpu_engines, gpu_engine,
+                                       toy_index):
+    """K1 with the table, and K4 with and without it."""
+    eng = gpu_engines[which]
+    t, words, S = _packed_reads(toy_index)
+    got = eng.seed_scan(t, words, S)
+    torch.testing.assert_close(got, eng.plain_seed_scan(t, words, S),
+                               rtol=0, atol=0)
+    narrow = gpu_engine.plain_seed_scan(t, words, S)
+    torch.testing.assert_close(got.long(), narrow.long(), rtol=0, atol=0)
+
+
+def shift_samples(eng, delta: int) -> FMIndexTorch:
+    """A shallow copy of ``eng`` whose table's SA samples are all
+    ``delta`` larger ([lo x8 | hi x8] rows from sad_off on)."""
+    out = copy.copy(eng)
+    tab = eng.table.cpu().clone()
+    s = tab[eng.sad_off:].numpy().view(np.uint32)
+    v = (s[:, :8].astype(np.uint64) | (s[:, 8:].astype(np.uint64) << 32))
+    v += np.uint64(delta)
+    s[:, :8] = (v & 0xFFFFFFFF).astype(np.uint32)
+    s[:, 8:] = (v >> np.uint64(32)).astype(np.uint32)
+    out.table = tab.to(eng.table.device)
+    return out
+
+
+def test_wide_locate_kernel_carries_64_bits(gpu_engines, toy_index):
+    """K5 on every row, then on a copy of the table with 2^33 added to
+    every SA sample: the kernel, like its plain version, returns every
+    position shifted by exactly 2^33."""
+    eng = gpu_engines["wide"]
+    rows = torch.arange(toy_index.seq_len, dtype=torch.int64, device="cuda")
+    base = eng.locate_rows(rows)
+    torch.testing.assert_close(base, eng.plain_locate(rows), rtol=0, atol=0)
+    shifted = shift_samples(eng, 2**33)
+    got = shifted.locate_rows(rows)
+    torch.testing.assert_close(got, base + 2**33, rtol=0, atol=0)
+    torch.testing.assert_close(got, shifted.plain_locate(rows), rtol=0,
+                               atol=0)

@@ -64,3 +64,42 @@ def test_to_device_keeps_bits(toy_index):
         tabs["table"].tobytes()
     assert dev["L2"].tolist() == tabs["L2"].tolist()
     assert dev["ref_off"] == tabs["ref_off"]
+
+
+@pytest.mark.parametrize("packer", ["native", "numpy"])
+@pytest.mark.parametrize("which", ["golden", "built"])
+def test_wide_table_byte_equal_to_jax_layout(which, packer, toy_index,
+                                             built_index, monkeypatch):
+    """The wide table, from the native packers and from their NumPy
+    twins, is byte-equal to fm_jax_wide.build_merged_table_wide."""
+    from dart_tpu.ops.fm_jax_wide import build_merged_table_wide
+
+    idx = toy_index if which == "golden" else built_index
+    if packer == "numpy":
+        monkeypatch.setattr(layout, "_native", lambda: None)
+    else:
+        assert layout._native() is not None
+    tabs = layout.tables_from_index(idx, wide=True)
+    merged, ref_off, sad_off = build_merged_table_wide(idx)
+    assert tabs["table"].dtype == np.uint32 and tabs["table"].shape[1] == 16
+    assert tabs["table"].tobytes() == merged.tobytes()
+    assert (tabs["ref_off"], tabs["sad_off"]) == (ref_off, sad_off)
+    assert tabs["wide"] and tabs["L2"].dtype == np.int64
+    np.testing.assert_array_equal(tabs["L2"], idx.L2)
+
+
+def test_wide_occ_rows_count_the_bwt(toy_index):
+    """Each wide Occ row holds the 64-bit base counts before its block
+    as (lo, hi) halves and the block's 128 bases, 16 per word."""
+    blocks = layout.build_device_layout_wide(toy_index)
+    bwt = toy_index.bwt
+    rng = np.random.default_rng(5)
+    for b in rng.integers(0, blocks.shape[0] - 1, 20):
+        start = int(b) * 128
+        for c in range(4):
+            assert int(blocks[b, c]) | (int(blocks[b, 4 + c]) << 32) == \
+                int((bwt[:start] == c).sum())
+        words = blocks[b, 8:].astype(np.uint64)
+        got = [(int(words[i // 16]) >> (30 - 2 * (i % 16))) & 3
+               for i in range(128)]
+        assert got == bwt[start:start + 128].tolist()
