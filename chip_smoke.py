@@ -36,15 +36,40 @@ the root of a checkout it:
    kernel and its plain version at the same shapes as phase 2;
 6. aligns ``50mbp_se``'s 100,000 reads with the narrow and with the wide
    engine (K-mer table on) and requires the whole SAM and junction
-   table byte-equal between the two.
+   table byte-equal between the two;
+7. ``[nw]``, the gap DP (K7): runs the first 2,000 reads of ``8mbp_se``
+   through ``dart_tpu``'s Python pipeline (``cfg.native = False``) on
+   the port's engine, recording every fragment pair it hands its host
+   DP, and requires SAM and junction table equal to the same pipeline
+   on ``dart_tpu``'s NumPy engine; holds the kernel's planes equal to
+   ``nw_plain``'s on the recorded pairs and on a fuzz set (0-127 bases a
+   side, 127 x 127, N, lower case); runs the recorded pairs through
+   ``nw_align_batch`` on the card (its path) and requires the strings of
+   every recorded and fuzz pair equal to the host C++ DP ``nw_align``;
+   times kernel and plain version at 65,536 pairs (the recorded ones
+   tiled, and 127 x 127), and the host's share: packing and traceback
+   of the recorded batch, and ``nw_align`` over the same pairs;
+8. ``[mem_walks]``, the MEM walk (K8): holds the kernel equal to its
+   plain version on the toy index (a 64-base task from every genome
+   position) and on the 8 Mbp index (65,536 tasks of 128 bases cut from
+   the set's reads, with 2% more substitutions, N bases and invalid
+   tails); runs ``seeding.seed_reads_from_all_walks`` on 4,096 reads
+   through the card's engine (its path) and requires the expanded
+   occurrences equal to the engine's own seed scan's; runs
+   ``dart_tpu_torch.entry``'s forward step (its other path) on the card
+   against its plain run; times kernel and plain version at
+   65,536 x 128.
 
 Every engine of a main-path run (phases 4 and 6) is made inside that
 run, so its launch counts start at 0 there; the checks and timings of
-phases 2 and 5 use engines of their own. The line before the last is a
-JSON object with each kernel's launches on the main path of phase 4,
-its largest difference from the plain version, and both times at the
-8 Mbp index. The last line is ``{"ok": true, "device": {...}}``; it is
-printed only when every phase passed, and the exit code is 0 only then.
+phases 2 and 5 use engines of their own. Phases 7 and 8 set the counts
+of their paths to 0 just before driving them and read them just after.
+The line before the last is a JSON object with each kernel's launches on
+its path (phase 4 for K1-K6, phases 7 and 8 for the gap DP and the MEM
+walk), its largest difference from the plain version, and both times
+(at the 8 Mbp index for the FM kernels). The last line is ``{"ok":
+true, "device": {...}}``; it is printed only when every phase passed,
+and the exit code is 0 only then.
 """
 
 from __future__ import annotations
@@ -65,7 +90,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(HERE, "chip_smoke_work")
 GOLD = os.path.join(HERE, "tests", "golden")
 DATA = os.path.join(HERE, "tests", "data")
-SOURCE = "dart_tpu_torch/csrc/fm_kernels.cu"
+FM_SOURCE = "dart_tpu_torch/csrc/fm_kernels.cu"
 KERNELS = {  # name -> the TPU device program it replaces
     "seed_scan": "dart_tpu/ops/fm_jax.py:819",
     "locate": "dart_tpu/ops/fm_jax.py:1172",
@@ -74,6 +99,9 @@ KERNELS = {  # name -> the TPU device program it replaces
     "locate_wide": "dart_tpu/ops/fm_jax_wide.py:732",
     "lut_build_wide": "dart_tpu/ops/fm_jax_wide.py:303",
 }
+NW_SOURCE = "dart_tpu_torch/csrc/nw_kernels.cu"
+NW_REPLACES = "dart_tpu/ops/nw_pallas.py:54"
+MEM_WALKS_REPLACES = "dart_tpu/ops/fm_jax.py:699"
 GOLDEN = {  # tests/test_parity.py's nine configs, as CLI flags
     "c1_se_exact": ["-f", "se_exact.fa"],
     "c2_se_mm": ["-f", "se_mm.fq", "-mis", "5"],
@@ -88,6 +116,9 @@ GOLDEN = {  # tests/test_parity.py's nine configs, as CLI flags
 MAIN_R, MAIN_LP = 65536, 128  # the main path's seed-scan shape
 LUT_K = 11  # the K-mer table's K on a card (dart_tpu_torch.aligner)
 N_PARITY = 5000
+N_NW_READS = 2000  # reads through the Python pipeline in phase 7
+N_TIMED = 65536  # gap-DP pairs and MEM-walk tasks timed at once
+N_WALK_READS = 4096  # reads seeded from MEM walks in phase 8
 
 
 def log(msg: str) -> None:
@@ -440,14 +471,16 @@ def align(idx, ds, out: str, tag: str, device: str, wide: bool) -> dict:
     wall = time.perf_counter() - t0
     eng = aligner.engine
     n = aligner.counters["total"]
+    # the MEM walk serves another seeding path (phase 8), not this one
+    launches = {k: v for k, v in eng.launches.items() if k != "mem_walks"}
     log(f"  {tag}: {n} reads in {wall:.3f} s wall incl. set-up "
         f"({n / wall:.0f} reads/s); set-up {fmt_setup(eng)}; launches "
-        + ", ".join(f"{k} {v}" for k, v in eng.launches.items()))
+        + ", ".join(f"{k} {v}" for k, v in launches.items()))
     for line in err.getvalue().splitlines():
         if line.startswith("[stats]"):
             log(f"    {line}")
     if device == "cuda":
-        for k, v in eng.launches.items():
+        for k, v in launches.items():
             if v == 0:
                 raise AssertionError(f"{tag}: the main path launched no "
                                      f"{k} kernel")
@@ -456,7 +489,7 @@ def align(idx, ds, out: str, tag: str, device: str, wide: bool) -> dict:
                              f"lut_k {eng.lut_k})")
     if aligner.native is None:
         raise AssertionError("the native host pipeline did not load")
-    return {"launches": eng.launches, "wall_s": wall, "reads": n,
+    return {"launches": launches, "wall_s": wall, "reads": n,
             "setup_s": eng.setup_s}
 
 
@@ -465,6 +498,17 @@ def require_same(out: str, a: str, b: str, what: str) -> None:
         if not same_bytes(os.path.join(out, f"{a}.{ext}"),
                           os.path.join(out, f"{b}.{ext}")):
             raise AssertionError(f"{what}: {a}.{ext} differs from {b}.{ext}")
+
+
+def head_fastq(fq: str, n: int, out: str) -> str:
+    """The first n records of a FASTQ file, as a file under out."""
+    head = os.path.join(out, f"head{n}.fq")
+    with open(fq, "rb") as f, open(head, "wb") as g:
+        for i, line in enumerate(f):
+            if i == 4 * n:
+                break
+            g.write(line)
+    return head
 
 
 def phase_scale(big, ds, device: str, n_parity: int) -> dict:
@@ -483,12 +527,7 @@ def phase_scale(big, ds, device: str, n_parity: int) -> dict:
     log(f"  all {res['narrow']['reads']} reads: SAM and junction table "
         "byte-equal between the narrow and the wide engine")
 
-    head = os.path.join(out, f"head{n_parity}.fq")
-    with open(ds["fq"][0], "rb") as f, open(head, "wb") as g:
-        for i, line in enumerate(f):
-            if i == 4 * n_parity:
-                break
-            g.write(line)
+    head = head_fastq(ds["fq"][0], n_parity, out)
     for who in ("numpy", "port", "port_wide"):
         cfg = parse_args(["-i", ds["prefix"], "-f", head, "-o",
                           os.path.join(out, f"{who}.sam"), "-j",
@@ -516,6 +555,260 @@ def phase_scale50(big50, ds50, device: str) -> dict:
     require_same(out, "narrow", "wide", "50mbp_se")
     log(f"  all {res['narrow']['reads']} reads: SAM and junction table "
         "byte-equal between the narrow and the wide engine")
+    return res
+
+
+def nw_fuzz_pairs(rng, n: int):
+    """n fragment pairs of 0..127 bases a side: 127 x 127, empty sides,
+    N and lower case among them; half of them similar sides (a shifted
+    copy with substitutions and indels)."""
+    alpha = [*b"ACGTNacgtn"]
+    pairs = [(b"", b"ACG"), (b"ACG", b""), (b"A" * 127, b"A" * 127),
+             (b"ACGTN" * 25 + b"AC", b"acgtn" * 25 + b"ac")]
+    while len(pairs) < n:
+        m, k = (int(v) for v in rng.integers(0, 128, 2))
+        s1 = bytes(rng.choice(alpha, m).tolist())
+        if s1 and rng.random() < 0.5:
+            s2 = bytearray((s1 * 3)[int(rng.integers(3)):][:k])
+            for _ in range(int(rng.integers(6))):
+                at = int(rng.integers(len(s2) + 1))
+                s2[at:at + int(rng.integers(2))] = bytes(
+                    rng.choice(alpha, int(rng.integers(2))).tolist())
+            s2 = bytes(s2[:127])
+        else:
+            s2 = bytes(rng.choice(alpha, k).tolist())
+        pairs.append((s1, s2))
+    return pairs
+
+
+def nw_inputs(pairs, device: str):
+    import torch
+
+    from dart_tpu_torch.ops.nw_torch import pack_pairs
+
+    return [torch.from_numpy(a).to(device) for a in pack_pairs(pairs)]
+
+
+def phase_nw(idx, prefix: str, fq: str, device: str, n_reads: int,
+             n_timed: int, seed: int) -> dict:
+    """The gap DP (K7): pairs recorded from dart_tpu's Python pipeline on
+    the port's engine (output equal to the NumPy engine's), kernel vs
+    plain planes, nw_align_batch vs the host C++ DP, and times."""
+    import numpy as np
+
+    from dart_tpu.aligner import DartAligner
+    from dart_tpu.cli import parse_args
+    from dart_tpu.ops.nw_numpy import nw_align
+
+    from dart_tpu_torch.aligner import run
+    from dart_tpu_torch.ops import nw_torch
+    from dart_tpu_torch.ops.nw_plain import MAX_LEN, nw_plain
+
+    out = os.path.join(WORK, "nw")
+    os.makedirs(out, exist_ok=True)
+    head = head_fastq(fq, n_reads, out)
+    recorded = {}
+    for who in ("port", "numpy"):
+        cfg = parse_args(["-i", prefix, "-f", head, "-o",
+                          os.path.join(out, f"{who}.sam"), "-j",
+                          os.path.join(out, f"{who}.tab"), "-silent"])
+        cfg.native = False
+        with nw_torch.recording_host_dp() as rec, \
+                contextlib.redirect_stdout(io.StringIO()):
+            if who == "numpy":
+                cfg.engine = "numpy"
+                DartAligner(idx, cfg).run()
+            else:
+                run(idx, cfg, device)
+        recorded[who] = rec
+    require_same(out, "port", "numpy", f"Python pipeline, first {n_reads} "
+                 "reads")
+    if recorded["port"] != recorded["numpy"]:
+        raise AssertionError("the two engines' pipelines sent other DPs")
+    pairs = [p for p in recorded["port"] if max(map(len, p)) <= MAX_LEN]
+    if not pairs:
+        raise AssertionError("the Python pipeline sent no gap DP")
+    biggest = max(max(map(len, p)) for p in pairs)
+    log(f"  first {n_reads} reads through dart_tpu's Python pipeline on the "
+        f"port's engine: SAM and junction table equal to the NumPy engine's; "
+        f"{len(recorded['port'])} DPs recorded, {len(pairs)} of <= 127 bases "
+        f"a side (largest side {biggest})")
+
+    rng = np.random.default_rng(seed)
+    fuzz = nw_fuzz_pairs(rng, 512)
+    err = 0
+    for what, ps in (("recorded", pairs), ("fuzz", fuzz)):
+        c1, c2, mn = nw_inputs(ps, device)
+        err = max(err, check_equal(f"nw planes ({what})",
+                                   nw_torch.nw_planes(c1, c2, mn),
+                                   nw_plain(c1, c2, mn)))
+    log(f"  nw kernel planes == plain on the {len(pairs)} recorded pairs "
+        f"and {len(fuzz)} fuzz pairs (127 x 127, empty sides, N, lower case)")
+
+    nw_torch.launches["nw"] = 0
+    t0 = time.perf_counter()
+    got = nw_torch.nw_align_batch(pairs, device)
+    batch_s = time.perf_counter() - t0
+    launches = nw_torch.launches["nw"]
+    if device == "cuda" and launches == 0:
+        raise AssertionError("nw_align_batch launched no nw kernel")
+    t0 = time.perf_counter()
+    want = [nw_align(s1, s2) for s1, s2 in pairs]
+    host_dp_s = time.perf_counter() - t0
+    if got != want:
+        bad = sum(g != w for g, w in zip(got, want))
+        raise AssertionError(f"nw_align_batch: {bad} recorded pairs differ "
+                             "from nw_align")
+    if nw_torch.nw_align_batch(fuzz, device) != [nw_align(*p) for p in fuzz]:
+        raise AssertionError("nw_align_batch: fuzz pairs differ from nw_align")
+    log(f"  nw_align_batch on {device} == nw_align (host C++) on every "
+        f"recorded and fuzz pair; {launches} launch(es) for the recorded "
+        "batch")
+    res = {"max_abs_err": err, "launches": launches, "pairs": len(pairs),
+           "batch_s": batch_s, "host_dp_s": host_dp_s}
+    if device != "cuda":
+        return res
+
+    # the host's share of nw_align_batch on the recorded batch
+    t0 = time.perf_counter()
+    c1, c2, mn = nw_inputs(pairs, device)
+    planes = nw_torch.nw_planes(c1, c2, mn).cpu().numpy()
+    t1 = time.perf_counter()
+    for k, (s1, s2) in enumerate(pairs):
+        nw_torch.traceback(planes[k], s1, s2)
+    res["pack_kernel_copy_s"] = t1 - t0
+    res["traceback_s"] = time.perf_counter() - t1
+    tiled = [pairs[k % len(pairs)] for k in range(n_timed)]
+    t0 = time.perf_counter()
+    for s1, s2 in tiled:
+        nw_align(s1, s2)
+    res["host_dp_tiled_s"] = time.perf_counter() - t0
+    for what, ps, key in (("recorded pairs tiled", tiled, ""),
+                          ("127 x 127", [(b"ACGT" * 31 + b"ACG",
+                                          b"TGCA" * 31 + b"TGC")] * n_timed,
+                           "_127")):
+        c1, c2, mn = nw_inputs(ps, device)
+        ms = time_ms(lambda: nw_torch.nw_planes(c1, c2, mn), 10)
+        want, plain_ms = timed_once(lambda: nw_plain(c1, c2, mn))
+        res["max_abs_err"] = max(res["max_abs_err"], check_equal(
+            f"nw planes ({what}, timing shape)",
+            nw_torch.nw_planes(c1, c2, mn), want))
+        res["ms" + key], res["plain_ms" + key] = ms, plain_ms
+        del want
+        log(f"  nw on {n_timed} pairs ({what}): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms")
+    log(f"  host share, {len(pairs)} recorded pairs: nw_align_batch "
+        f"{batch_s:.4f} s (pack + kernel + copy "
+        f"{res['pack_kernel_copy_s']:.4f} s, traceback "
+        f"{res['traceback_s']:.4f} s); nw_align {host_dp_s:.4f} s; "
+        f"nw_align over the {n_timed} tiled pairs "
+        f"{res['host_dp_tiled_s']:.3f} s")
+    return res
+
+
+def walk_tasks(codes, rlens, rng, L: int):
+    """MEM-walk tasks of L bases cut from reads: each from a random start
+    in its read, with 2% more substitutions and N bases, valid to the
+    read's end or to an earlier random cut (one task in four)."""
+    import numpy as np
+
+    R, Lr = codes.shape
+    st = rng.integers(0, max(1, Lr // 4), R)
+    idx = st[:, None] + np.arange(L)[None, :]
+    chars = np.take_along_axis(
+        np.concatenate([codes, np.full((R, L), 4, np.uint8)], axis=1),
+        idx, axis=1)
+    mut = rng.random((R, L)) < 0.02
+    chars = np.where(mut, rng.integers(0, 5, (R, L)), chars).astype(np.uint8)
+    end = rlens.astype(np.int64) - st
+    end = np.where(rng.random(R) < 0.25, rng.integers(0, L, R), end)
+    return chars, np.arange(L)[None, :] < end[:, None]
+
+
+def phase_mem_walks(toy, big, ds, device: str, n_timed: int,
+                    n_reads: int, seed: int) -> dict:
+    """The MEM walk (K8): kernel vs plain on the toy and the 8 Mbp index,
+    seeding from walks vs the seed scan, the entry step, and times."""
+    import numpy as np
+    import torch
+
+    from dart_tpu.pipeline.seeding import (_expand_occurrences,
+                                           seed_reads_from_all_walks)
+
+    from dart_tpu_torch.entry import entry
+    from dart_tpu_torch.ops.fm_torch import FMIndexTorch
+
+    rng = np.random.default_rng(seed)
+    res = {"max_abs_err": 0}
+
+    def hold(eng, chars, valid, what):
+        c = torch.from_numpy(chars).to(device)
+        v = torch.from_numpy(valid).to(device)
+        got = eng.mem_walk_rows(c, v)
+        for name, g, w in zip(("lens", "x0", "x2"), got,
+                              eng.plain_mem_walks(c, v)):
+            res["max_abs_err"] = max(res["max_abs_err"], check_equal(
+                f"mem_walks {name} ({what})", g, w))
+        return c, v, got[0]
+
+    toy_eng = FMIndexTorch(toy, device)
+    G, L = toy.genome_size, 64
+    padded = np.concatenate([toy.ref_codes[:G], np.full(L, 4, np.uint8)])
+    chars = np.lib.stride_tricks.sliding_window_view(padded, L)[:G].copy()
+    valid = np.arange(L)[None, :] < (G - np.arange(G))[:, None]
+    lens = hold(toy_eng, chars, valid, "toy index")[2]
+    log(f"  mem_walks kernel == plain, a task from each of the {G} toy "
+        f"genome positions ({int((lens == L).sum())} walks of all {L} bases)")
+
+    eng = FMIndexTorch(big, device)
+    codes, rlens = read_fastq(ds["fq"][0], max(n_timed, n_reads))
+    chars, valid = walk_tasks(codes[:n_timed], rlens[:n_timed], rng, 128)
+    c, v, lens = hold(eng, chars, valid, "8 Mbp index")
+    log(f"  mem_walks kernel == plain on {len(chars)} tasks of 128 bases "
+        f"of the 8 Mbp set (mean length {float(lens.float().mean()):.1f}, "
+        f"{int((lens == 0).sum())} never started)")
+
+    # the seeding path of engines without the automaton, on a fresh
+    # engine: its counts start at 0 here
+    walker = FMIndexTorch(big, device)
+    rc, rl = codes[:n_reads], rlens[:n_reads]
+    walks = seed_reads_from_all_walks(walker, rc, rl, walker.max_dup_num)
+    seed_launches = walker.launches["mem_walks"]
+    scan = walker.seed_reads(rc, rl)
+    got, want = (_expand_occurrences(walker, *t, len(rl))
+                 for t in (walks, scan))
+    if not np.array_equal(got[0], want[0]):
+        raise AssertionError("seeding from walks: occurrence offsets differ "
+                             "from the seed scan's")
+    for r in range(len(rl)):
+        a, b = got[0][r], got[0][r + 1]
+        if sorted(zip(got[3][a:b], got[1][a:b], got[2][a:b])) != \
+                sorted(zip(want[3][a:b], want[1][a:b], want[2][a:b])):
+            raise AssertionError(f"seeding from walks: read {r}'s "
+                                 "occurrences differ from the seed scan's")
+    log(f"  seed_reads_from_all_walks on {len(rl)} reads through the card's "
+        f"MEM walks == the seed scan ({int(got[0][-1])} occurrences), "
+        f"{seed_launches} mem_walks launch(es)")
+
+    step, args = entry(device)
+    got = step(*args)
+    entry_launches = step.engine.launches
+    for name, g, w in zip(("lens", "x2", "locs"), got, step.plain(*args)):
+        res["max_abs_err"] = max(res["max_abs_err"], check_equal(
+            f"entry step {name}", g, w))
+    log(f"  entry() forward step on {device} == its plain run "
+        f"({int((got[2] >= 0).sum())} of {len(got[2])} walks accepted); "
+        f"launches mem_walks {entry_launches['mem_walks']}, locate "
+        f"{entry_launches['locate']}")
+    res["launches"] = seed_launches + entry_launches["mem_walks"]
+    if device == "cuda":
+        if not (seed_launches and entry_launches["mem_walks"]
+                and entry_launches["locate"]):
+            raise AssertionError("a MEM-walk path launched no kernel")
+        res["ms"] = time_ms(lambda: eng.mem_walk_rows(c, v), 20)
+        _, res["plain_ms"] = timed_once(lambda: eng.plain_mem_walks(c, v))
+        log(f"  mem_walks on {len(chars)} x 128 tasks of the 8 Mbp set: "
+            f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.3f} ms")
     return res
 
 
@@ -567,6 +860,11 @@ def main() -> int:
                 toy, big, ds, "cuda", 4096, 1 << 16, MAIN_R, 20260816))
             phase("goldens", lambda: phase_goldens(toy, "cuda"))
             phase("scale", lambda: phase_scale(big, ds, "cuda", N_PARITY))
+            phase("nw", lambda: phase_nw(big, ds["prefix"], ds["fq"][0],
+                                         "cuda", N_NW_READS, N_TIMED,
+                                         20261017))
+            phase("mem_walks", lambda: phase_mem_walks(
+                toy, big, ds, "cuda", N_TIMED, N_WALK_READS, 20261018))
         phase("dataset50", lambda: finish_dataset(gen50, "50mbp_se"))
         if "dataset50" in state and "build" in state:
             ds50 = state["dataset50"]
@@ -578,7 +876,7 @@ def main() -> int:
         if gen50.poll() is None:
             gen50.kill()
             gen50.wait()
-    if failed or "scale50" not in state or "scale" not in state:
+    if failed or not {"scale", "scale50", "nw", "mem_walks"} <= set(state):
         log(f"chip_smoke: failed phases: {', '.join(failed) or 'none'}")
         return 1
     kern, scale = state["kernels"], state["scale"]
@@ -587,12 +885,20 @@ def main() -> int:
     err50 = {k: v["max_abs_err"] for k, v in k50["times"].items()}
     err50["lut_build_wide"] = max(err50["lut_build_wide"],
                                   k50["lut_build_wide"])
-    print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": SOURCE, "replaces": KERNELS[k],
-         "launches": launches[k],
-         "max_abs_err": max(kern[k]["max_abs_err"], err50[k]),
-         "ms": kern[k]["ms"], "plain_ms": kern[k]["plain_ms"]}
-        for k in KERNELS]}))
+    rows = [{"name": k, "route": "cuda", "source": FM_SOURCE,
+             "replaces": KERNELS[k], "launches": launches[k],
+             "max_abs_err": max(kern[k]["max_abs_err"], err50[k]),
+             "ms": kern[k]["ms"], "plain_ms": kern[k]["plain_ms"]}
+            for k in KERNELS]
+    for name, source, replaces in (
+            ("nw", NW_SOURCE, NW_REPLACES),
+            ("mem_walks", FM_SOURCE, MEM_WALKS_REPLACES)):
+        r = state[name]
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": r["launches"],
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"]})
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,11 +6,15 @@ readers, the native C++ packer and pipeline, SAM/BAM writers, CLI
 parser, ``DartAligner``) contain no JAX and are imported as they are.
 This package replaces only the device engine: the FM-index tables on
 the card (``ops.layout``, narrow below 2^31 text positions and wide
-from there on), the seed-scan, SA-locate and K-mer table kernels
-written by hand in CUDA (``csrc/fm_kernels.cu``, built by
+from there on), the seed-scan, SA-locate, K-mer table and MEM-walk
+kernels written by hand in CUDA (``csrc/fm_kernels.cu``, built by
 ``ops.build``), their plain PyTorch versions (``ops.fm_plain``), and
 the engine that serves them to the shared seeding code
-(``ops.fm_torch.FMIndexTorch``).
+(``ops.fm_torch.FMIndexTorch``). Off the main path it has the batched
+gap DP of ``dart_tpu.ops.nw_pallas`` (``csrc/nw_kernels.cu``, plain
+version ``ops.nw_plain``, batch entry ``ops.nw_torch.nw_align_batch``)
+and the counterpart of ``__graft_entry__.entry()`` (``entry``: MEM
+walks, then SA locate, on the toy index).
 
 This package imports ``torch`` and never ``jax``.
 """

@@ -1,11 +1,13 @@
 // FM-index kernels of the aligner's main path, for Hopper (sm_90a).
 //
-// Each kernel is a template on the table layout, instantiated twice:
+// Each kernel is a template on the table layout, instantiated twice (the
+// MEM walk once, narrow, as in dart_tpu):
 //
 //   Narrow (int state, fwd+rc text below 2^31): dart_fm_seed_scan replaces
 //   dart_tpu/ops/fm_jax.py::_seed_scan_kernel, dart_fm_locate replaces
-//   fm_jax.py::_locate_kernel and dart_fm_lut_build replaces
-//   fm_jax.py::build_lut / _lut_extend. The merged table (built by
+//   fm_jax.py::_locate_kernel, dart_fm_lut_build replaces
+//   fm_jax.py::build_lut / _lut_extend and dart_fm_mem_walks replaces
+//   fm_jax.py::_mem_walks_kernel. The merged table (built by
 //   dart_tpu_torch/ops/layout.py) has 8 uint32 words per row: Occ rows
 //   [occA occC occG occT | 64 BWT bases, 16 per word, top first], then the
 //   2-bit packed genome from row ref_off (128 bases a row), then the SA
@@ -35,9 +37,9 @@
 // the 50 MB L2; a 50 Mbp one (125 MB) and GRCh38's do not, and there each
 // step costs a DRAM round trip, which the LUT saves K - 1 times a walk. The
 // design answers latency with parallelism: one thread per read (or per row
-// to locate, or per K-mer), a plain sequential loop in each thread, 128
-// threads a block, so that tens of thousands of independent gathers are in
-// flight at once. A row is read as 16-byte loads (two narrow, four wide).
+// to locate, per K-mer, per MEM-walk task), a plain sequential loop in
+// each thread, 128 threads a block, so that tens of thousands of
+// independent gathers are in flight at once. A row is read as 16-byte loads (two narrow, four wide).
 // The TPU form's merged 2R-row gather, select trees, one-hot reductions and
 // masks for every mode are not carried over: a thread simply branches.
 //
@@ -466,6 +468,47 @@ lut_build_kernel(const uint4* __restrict__ t4, FmParams<typename L::I> p,
   L::lut_store(out, key, x0, x1, x2);
 }
 
+// The forward MEM walk of one (read, start) task per thread (BWT_Search,
+// bwt_search.cpp:139-170): the interval of the task's first base, extended
+// by each following base with the seed scan's own step, until a base is
+// invalid or N, or its extension has width 0. lens counts the bases taken
+// (1 for the first); x0 and x2 are the last interval's start and width. A
+// task that never starts (first base invalid or N) has length 0 and the
+// interval of its clipped first base min(c, 3), as in dart_tpu.
+//
+// Memory: each thread reads its own row of chars and valid, one byte a
+// step, so a warp's loads are 32 rows apart and not coalesced. The rows
+// are short and cached, and the table gathers still bound the walk; a
+// transposed (L, W) input, as dart_tpu's scan over chars.T has, is the
+// obvious later fix.
+template <class L>
+__global__ void __launch_bounds__(kThreads)
+mem_walks_kernel(const uint4* __restrict__ t4, FmParams<typename L::I> p,
+                 const uint8_t* __restrict__ chars,
+                 const uint8_t* __restrict__ valid, int W, int Lc,
+                 int* __restrict__ lens, typename L::I* __restrict__ x0o,
+                 typename L::I* __restrict__ x2o) {
+  using I = typename L::I;
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= W) return;
+  const uint8_t* c = chars + (size_t)w * Lc;
+  const uint8_t* v = valid + (size_t)w * Lc;
+  const int c0 = min((int)c[0], 3);
+  I x0 = p.L2[c0] + 1, x1 = p.L2[3 - c0] + 1, x2 = p.L2[c0 + 1] - p.L2[c0];
+  int len = 0;
+  if (v[0] && c[0] <= 3) {
+    len = 1;
+    for (int j = 1; j < Lc; ++j) {
+      const int ch = c[j];
+      if (!v[j] || ch > 3 || !extend<L>(t4, p, 3 - ch, x0, x1, x2)) break;
+      ++len;
+    }
+  }
+  lens[w] = len;
+  x0o[w] = x0;
+  x2o[w] = x2;
+}
+
 template <class L>
 int launch_seed_scan(const void* table, const typename L::I* params,
                      const void* lut, int lut_k, const void* buf, int R,
@@ -503,6 +546,20 @@ int launch_lut_build(const void* table, const typename L::I* params, int K,
   lut_build_kernel<L><<<(unsigned)((n + kThreads - 1) / kThreads), kThreads,
                         0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint4*>(table), make_params(params), K, out);
+  return (int)cudaGetLastError();
+}
+
+template <class L>
+int launch_mem_walks(const void* table, const typename L::I* params,
+                     const void* chars, const void* valid, int W, int Lc,
+                     void* lens, void* x0, void* x2, void* stream) {
+  using I = typename L::I;
+  mem_walks_kernel<L><<<(W + kThreads - 1) / kThreads, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(table), make_params(params),
+      static_cast<const uint8_t*>(chars), static_cast<const uint8_t*>(valid),
+      W, Lc, static_cast<int*>(lens), static_cast<I*>(x0),
+      static_cast<I*>(x2));
   return (int)cudaGetLastError();
 }
 
@@ -546,4 +603,12 @@ extern "C" int dart_fm_lut_build_wide(const void* table,
                                       const long long* params, int K,
                                       void* out, void* stream) {
   return launch_lut_build<Wide>(table, params, K, out, stream);
+}
+
+extern "C" int dart_fm_mem_walks(const void* table, const int* params,
+                                 const void* chars, const void* valid, int W,
+                                 int L, void* lens, void* x0, void* x2,
+                                 void* stream) {
+  return launch_mem_walks<Narrow>(table, params, chars, valid, W, L, lens, x0,
+                                  x2, stream);
 }

@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of ``csrc/`` at first use.
 
-``nvcc`` compiles the sources into a shared library with a plain C
-interface, loaded with ``ctypes``; no PyTorch header is compiled, so the
-build takes seconds. The library lands in ``dart_tpu_torch/_build/``
+``nvcc`` compiles each source to an object file, all at once in
+parallel processes, and links them into one shared library with a plain
+C interface, loaded with ``ctypes``; no PyTorch header is compiled, so
+the build takes seconds. The library lands in ``dart_tpu_torch/_build/``
 under a name keyed on a hash of the sources and the flags, so an edit
 to a kernel builds anew and an unchanged tree reuses its build. A build
 that fails raises with the compiler's output.
@@ -22,9 +23,9 @@ import time
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
 BUILD_DIR = os.path.join(PKG, "_build")
-SOURCES = ("fm_kernels.cu",)
+SOURCES = ("fm_kernels.cu", "nw_kernels.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
 
@@ -48,6 +49,21 @@ def lib_path() -> str:
     return os.path.join(BUILD_DIR, f"libdart_fm_{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel processes; raise with the output of
+    each that failed, once all have ended."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    fails = []
+    for cmd, proc in procs:
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            fails.append(f"({proc.returncode}) {' '.join(cmd)}\n{out}")
+    if fails:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(fails))
+
+
 def build() -> tuple[str, float]:
     """Compile the sources unless this exact build exists. Returns the
     library's path and the seconds spent compiling (0 if reused)."""
@@ -57,14 +73,20 @@ def build() -> tuple[str, float]:
             return lib, 0.0
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{lib}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-               *(os.path.join(CSRC, s) for s in SOURCES)]
+        objs = [f"{tmp}.{s}.o" for s in SOURCES]
+        nvcc = nvcc_path()
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-        os.replace(tmp, lib)
+        try:
+            # one compiler process per source, all running at once
+            _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+                       os.path.join(CSRC, src)]
+                      for src, obj in zip(SOURCES, objs)])
+            _run_all([[nvcc, "-shared", "-o", tmp, *objs]])
+            os.replace(tmp, lib)
+        finally:
+            for obj in objs:
+                if os.path.exists(obj):
+                    os.remove(obj)
         return lib, time.perf_counter() - t0
 
 
@@ -87,6 +109,10 @@ def load() -> ctypes.CDLL:
         # table, params, K, out, stream
         "dart_fm_lut_build": [vp, ip, i32, vp, vp],
         "dart_fm_lut_build_wide": [vp, lp, i32, vp, vp],
+        # table, params, chars, valid, W, L, lens, x0, x2, stream
+        "dart_fm_mem_walks": [vp, ip, vp, vp, i32, i32, vp, vp, vp, vp],
+        # c1, c2, mn, B, planes, stream
+        "dart_nw_planes": [vp, vp, vp, i32, vp, vp],
     }.items():
         fn = getattr(lib, name)
         fn.restype = i32

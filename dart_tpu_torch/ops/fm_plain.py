@@ -4,7 +4,8 @@ These are the yardsticks of ``csrc/fm_kernels.cu``: the same inputs,
 the same output layout, bit for bit. They run the JAX engines'
 algorithms (``dart_tpu.ops.fm_jax._seed_scan_kernel`` with plain
 one-character or K-mer-table walk init, ``_locate_kernel`` and
-``build_lut``, and their wide forms in ``fm_jax_wide``) as masked loops
+``build_lut``, and their wide forms in ``fm_jax_wide``; and
+``_mem_walks_kernel``, narrow only) as masked loops
 over lanes: every live lane takes one automaton step per loop
 iteration, and finished lanes are dropped from the working set as they
 pile up.
@@ -153,6 +154,46 @@ def lut_build_plain(table: torch.Tensor, L2: torch.Tensor, *, primary: int,
         return torch.stack([x0, x1, x2], dim=1)
     return torch.stack([x0, x1, x2, torch.zeros_like(x0)],
                        dim=1).to(torch.int32)
+
+
+def mem_walks_plain(table: torch.Tensor, L2: torch.Tensor,
+                    chars: torch.Tensor, valid: torch.Tensor, *,
+                    primary: int):
+    """Forward MEM walks (``fm_jax._mem_walks_kernel``, BWT_Search), one
+    task per row of ``chars`` (W, L) uint8 codes and ``valid`` (W, L)
+    bool: from the interval of the first base, extend by each following
+    base until one is invalid, is N (> 3) or extends to width 0; a
+    stopped walk stays stopped. -> (lens, x0, x2), each (W,) int32:
+    the bases taken (0 for a task that never starts) and the last
+    interval's start and width. A task that never starts keeps the
+    interval of its clipped first base ``min(c, 3)``. Column by column
+    over the live tasks only."""
+    L2 = L2.long()
+    ch = chars.long()
+    c0 = ch[:, 0].clamp(max=3)
+    x0, x1, x2 = L2[c0] + 1, L2[3 - c0] + 1, L2[c0 + 1] - L2[c0]
+    started = valid[:, 0] & (ch[:, 0] <= 3)
+    lens = started.long()
+    live = started.nonzero().squeeze(1)
+    for j in range(1, ch.shape[1]):
+        c = ch[live, j]
+        ok = valid[live, j] & (c <= 3)
+        live, c = live[ok], c[ok]
+        if live.numel() == 0:
+            break
+        a0, a1, a2 = x0[live], x1[live], x2[live]
+        tk = _occ_at(table, a1 - 1, primary)
+        tl = _occ_at(table, a1 - 1 + a2, primary)
+        starts, nx1, w = _backward_ext(L2, a0, a1, a2, tk, tl, primary)
+        ci = (3 - c)[:, None]
+        wi = w.gather(1, ci).squeeze(1)
+        up = wi > 0
+        live = live[up]
+        x0[live] = starts.gather(1, ci).squeeze(1)[up]
+        x1[live] = nx1.gather(1, ci).squeeze(1)[up]
+        x2[live] = wi[up]
+        lens[live] += 1
+    return lens.int(), x0.int(), x2.int()
 
 
 def locate_plain(table: torch.Tensor, L2: torch.Tensor, rows: torch.Tensor,

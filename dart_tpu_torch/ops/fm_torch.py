@@ -1,11 +1,14 @@
-"""The port's FM-index engine: seed scan and SA locate on one device.
+"""The port's FM-index engine: seed scan, SA locate and MEM walks on one
+device.
 
 ``FMIndexTorch`` serves the engine surface that the shared seeding code
 (``dart_tpu.pipeline.seeding``) calls: ``seed_submit_packed`` /
 ``seed_finish`` for packed chunks, ``seed_reads`` for code matrices,
-``locate_submit`` / ``locate_finish`` / ``locate`` for SA rows, and
-``_pad_up`` / ``_min_bucket`` for the packer. It defines no
-``seed_drain``, so the shared code takes its JAX-free expansion path.
+``locate_submit`` / ``locate_finish`` / ``locate`` for SA rows,
+``_pad_up`` / ``_min_bucket`` for the packer, and ``mem_walks`` for
+the seeding path of engines without the scan automaton
+(``seeding.seed_reads_from_all_walks``). It defines no ``seed_drain``,
+so the shared code takes its JAX-free expansion path.
 
 One class serves both table layouts of ``ops.layout``: narrow (int32
 state, the default below 2^31 text positions) and wide (int64 state,
@@ -14,11 +17,13 @@ With ``lut_k`` > 0 it builds the K-mer walk-state table at
 construction, as a tensor of its own beside the merged table, and every
 seed walk starts from it.
 
-On a CUDA device every scan, locate and table build launches the
-hand-written kernel of ``csrc/fm_kernels.cu`` (or raises); on the CPU
-it runs the plain PyTorch version of ``ops.fm_plain``. Each seed round
-ships the N mask with the reads, gives every read the worst-case
-seed-slot count and runs every lane to its end in one launch.
+On a CUDA device every scan, locate, table build and MEM walk launches
+the hand-written kernel of ``csrc/fm_kernels.cu`` (or raises); on the
+CPU it runs the plain PyTorch version of ``ops.fm_plain``. The MEM walk
+is narrow only, as in ``dart_tpu`` (``FMIndexJaxWide`` has none). Each
+seed round ships the N mask with the reads, gives every read the
+worst-case seed-slot count and runs every lane to its end in one
+launch.
 """
 
 from __future__ import annotations
@@ -30,7 +35,8 @@ import numpy as np
 import torch
 
 from . import build
-from .fm_plain import locate_plain, lut_build_plain, seed_scan_plain
+from .fm_plain import (locate_plain, lut_build_plain, mem_walks_plain,
+                       seed_scan_plain)
 from .layout import tables_from_index, to_device
 
 # texts of this many positions or more need the wide (int64) engine
@@ -61,6 +67,7 @@ class FMIndexTorch:
         self.n_seed_launches = 0
         self.n_locate_launches = 0
         self.n_lut_launches = 0
+        self.n_mem_walks_launches = 0
         t0 = time.perf_counter()
         tabs = tables_from_index(idx, wide=self.wide)
         self.primary = tabs["primary"]
@@ -92,11 +99,15 @@ class FMIndexTorch:
 
     @property
     def launches(self) -> dict:
-        """Launch counts by kernel name (``_wide`` for the wide ones)."""
+        """Launch counts by kernel name (``_wide`` for the wide ones;
+        ``mem_walks`` on the narrow engine only)."""
         sfx = "_wide" if self.wide else ""
-        return {f"seed_scan{sfx}": self.n_seed_launches,
-                f"locate{sfx}": self.n_locate_launches,
-                f"lut_build{sfx}": self.n_lut_launches}
+        out = {f"seed_scan{sfx}": self.n_seed_launches,
+               f"locate{sfx}": self.n_locate_launches,
+               f"lut_build{sfx}": self.n_lut_launches}
+        if not self.wide:
+            out["mem_walks"] = self.n_mem_walks_launches
+        return out
 
     @staticmethod
     def _pad_up(n: int, floor: int = 1) -> int:
@@ -185,6 +196,34 @@ class FMIndexTorch:
         self.n_lut_launches += 1
         return out
 
+    def mem_walk_rows(self, chars: torch.Tensor, valid: torch.Tensor):
+        """Forward MEM walks of the tasks ``chars`` (W, L >= 1) uint8
+        codes (> 3 is N) and ``valid`` (W, L) bool -> (lens, x0, x2),
+        each (W,) int32 (see ``fm_plain.mem_walks_plain``). Narrow
+        engine only."""
+        if self.wide:
+            raise NotImplementedError("the wide engine has no MEM walk, as "
+                                      "dart_tpu's FMIndexJaxWide has none")
+        self._check(chars, 2, torch.uint8)
+        self._check(valid, 2, torch.bool)
+        W, L = chars.shape
+        if valid.shape != chars.shape or L == 0:
+            raise ValueError(f"chars {tuple(chars.shape)} and valid "
+                             f"{tuple(valid.shape)}: expected one (W, L >= 1) "
+                             "shape")
+        if chars.device.type == "cpu":
+            return self.plain_mem_walks(chars, valid)
+        lens, x0, x2 = (torch.empty(W, dtype=torch.int32, device=self.device)
+                        for _ in range(3))
+        if W:
+            rc = build.load().dart_fm_mem_walks(
+                self.table.data_ptr(), self._params_ptr(), chars.data_ptr(),
+                valid.data_ptr(), W, L, lens.data_ptr(), x0.data_ptr(),
+                x2.data_ptr(), self._stream())
+            self._check_launch(rc, "MEM walk")
+            self.n_mem_walks_launches += 1
+        return lens, x0, x2
+
     def _params_ptr(self):
         ct = ctypes.c_int64 if self.wide else ctypes.c_int
         return self._params.ctypes.data_as(ctypes.POINTER(ct))
@@ -210,6 +249,11 @@ class FMIndexTorch:
         """The plain PyTorch version of ``build_lut`` on any device."""
         return lut_build_plain(self.table, self.L2, primary=self.primary,
                                K=self.lut_k)
+
+    def plain_mem_walks(self, chars: torch.Tensor, valid: torch.Tensor):
+        """The plain PyTorch version of ``mem_walk_rows`` on any device."""
+        return mem_walks_plain(self.table, self.L2, chars, valid,
+                               primary=self.primary)
 
     # ---- engine surface of the shared seeding code ----
 
@@ -265,6 +309,15 @@ class FMIndexTorch:
 
     def locate(self, rows: np.ndarray) -> np.ndarray:
         return self.locate_finish(self.locate_submit(rows))
+
+    def mem_walks(self, chars: np.ndarray, valid: np.ndarray):
+        """Forward MEM walks of (W, L) tasks given as numpy arrays, as
+        ``FMIndexJax.mem_walks`` takes them -> (lens, x0, x2) int64 (W,).
+        Narrow engine only."""
+        c = torch.from_numpy(np.ascontiguousarray(chars, dtype=np.uint8))
+        v = torch.from_numpy(np.ascontiguousarray(valid, dtype=bool))
+        out = self.mem_walk_rows(c.to(self.device), v.to(self.device))
+        return tuple(t.cpu().numpy().astype(np.int64) for t in out)
 
 
 def pack_codes(codes: np.ndarray, rlens: np.ndarray):

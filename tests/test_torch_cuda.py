@@ -1,12 +1,13 @@
 """The CUDA kernels of dart_tpu_torch on the card, held exactly against
 their plain PyTorch versions on the same device tensors (narrow and
-wide, with and without the K-mer table), and a golden config aligned
-on the card. Marked ``cuda``: they skip without a CUDA device. On a
+wide, with and without the K-mer table; the MEM walk; the gap DP), and
+a golden config aligned on the card. Marked ``cuda``: they skip without a CUDA device. On a
 machine with one: ``pytest -m cuda tests/test_torch_cuda.py``.
 """
 
 import copy
 import io
+import random
 
 import numpy as np
 import pytest
@@ -14,7 +15,10 @@ import torch
 
 from dart_tpu.aligner import DartAligner
 from dart_tpu.config import DartConfig
+from dart_tpu.ops.nw_numpy import nw_align
+from dart_tpu_torch.ops import nw_torch
 from dart_tpu_torch.ops.fm_torch import FMIndexTorch, pack_codes
+from dart_tpu_torch.ops.nw_plain import nw_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -137,3 +141,43 @@ def test_wide_locate_kernel_carries_64_bits(gpu_engines, toy_index):
     torch.testing.assert_close(got, base + 2**33, rtol=0, atol=0)
     torch.testing.assert_close(got, shifted.plain_locate(rows), rtol=0,
                                atol=0)
+
+
+def test_mem_walks_kernel_equals_plain(gpu_engine, toy_index):
+    """K8 on a task from every genome position, 64 bases, with 1%
+    substitutions and N bases and the genome's end as invalid tails."""
+    G, L = toy_index.genome_size, 64
+    codes = np.concatenate([toy_index.ref_codes[:G], np.full(L, 4, np.uint8)])
+    chars = np.lib.stride_tricks.sliding_window_view(codes, L)[:G]
+    rng = np.random.default_rng(5)
+    mut = rng.random(chars.shape) < 0.01
+    chars = np.where(mut, rng.integers(0, 5, chars.shape), chars)
+    valid = np.arange(L)[None, :] < (G - np.arange(G))[:, None]
+    c = torch.from_numpy(chars.astype(np.uint8)).cuda()
+    v = torch.from_numpy(valid).cuda()
+    n0 = gpu_engine.n_mem_walks_launches
+    got = gpu_engine.mem_walk_rows(c, v)
+    for g, w in zip(got, gpu_engine.plain_mem_walks(c, v)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert gpu_engine.n_mem_walks_launches == n0 + 1
+
+
+def test_nw_kernel_equals_plain(gpu_engine):
+    """K7 on pairs of 0..127 bases a side (127 x 127 among them), N and
+    lower case: planes word for word, and the aligned strings equal the
+    host C++ DP."""
+    rng = random.Random(9)
+    pairs = [(b"", b"ACG"), (b"A" * 127, b"ACGTN" * 25 + b"ac")]
+    for _ in range(254):
+        m, k = rng.randrange(128), rng.randrange(128)
+        s1 = "".join(rng.choice("ACGTNacgt") for _ in range(m)).encode()
+        s2 = "".join(rng.choice("ACGTNacgt") for _ in range(k)).encode()
+        pairs.append((s1, s2))
+    c1, c2, mn = (torch.from_numpy(a).cuda()
+                  for a in nw_torch.pack_pairs(pairs))
+    n0 = nw_torch.launches["nw"]
+    got = nw_torch.nw_planes(c1, c2, mn)
+    torch.testing.assert_close(got, nw_plain(c1, c2, mn), rtol=0, atol=0)
+    assert nw_torch.launches["nw"] == n0 + 1
+    assert nw_torch.nw_align_batch(pairs, "cuda") == \
+        [nw_align(s1, s2) for s1, s2 in pairs]

@@ -1,6 +1,7 @@
 """dart_tpu_torch never imports JAX: in a fresh interpreter where any
-attempt to import jax is recorded and refused, the port imports and
-aligns a golden config, and no attempt was made."""
+attempt to import jax is recorded and refused, the port imports (its
+gap DP and entry step among the rest), aligns a golden config and a
+batch of gap DPs, and no attempt was made."""
 
 import json
 import pathlib
@@ -22,8 +23,10 @@ SCRIPT = textwrap.dedent("""
 
     sys.meta_path.insert(0, NoJax())
     import dart_tpu_torch, dart_tpu_torch.aligner, dart_tpu_torch.cli
+    import dart_tpu_torch.entry, dart_tpu_torch.ops.nw_torch
     import torch
     from dart_tpu_torch.cli import main
+    from dart_tpu_torch.ops.nw_torch import nw_align_batch
 
     torch.set_num_threads(1)
 
@@ -31,9 +34,12 @@ SCRIPT = textwrap.dedent("""
     rc = main(["-i", gold + "/index/toy", "-f", data + "/spliced_mm.fq",
                "-mis", "5", "-all_sj", "-o", out + "/o.sam",
                "-j", out + "/o.tab", "-silent", "--device", "cpu"])
+    aligned = nw_align_batch([(b"AACCGG", b"AACGG"), (b"", b"ACG")], "cpu")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("jax", "jaxlib"))
-    print(json.dumps({"rc": rc, "attempts": attempts, "loaded": loaded}))
+    print(json.dumps({"rc": rc, "attempts": attempts, "loaded": loaded,
+                      "aligned": [[a.decode(), b.decode()]
+                                  for a, b in aligned]}))
 """)
 
 
@@ -44,7 +50,8 @@ def test_port_never_imports_jax(golden_dir, data_dir, tmp_path):
         cwd=pathlib.Path(__file__).resolve().parents[1])
     assert res.returncode == 0, res.stderr
     got = json.loads(res.stdout.strip().splitlines()[-1])
-    assert got == {"rc": 0, "attempts": [], "loaded": []}
+    assert got == {"rc": 0, "attempts": [], "loaded": [],
+                   "aligned": [["AACCGG", "-AACGG"], ["---", "ACG"]]}
     assert (tmp_path / "o.sam").read_bytes() == \
         (golden_dir / "c4_spliced_mm.sam").read_bytes()
     assert (tmp_path / "o.tab").read_bytes() == \
