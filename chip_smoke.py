@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``dart_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # one card: phases 1-12 below
+    python3 chip_smoke.py --cards    # two cards or more: phase_cards only
 
 Needs one CUDA card, ``nvcc`` and a C++ compiler; imports no JAX. From
 the root of a checkout it:
@@ -60,14 +61,43 @@ the root of a checkout it:
    against its plain run; times kernel and plain version at
    65,536 x 128.
 
-Every engine of a main-path run (phases 4 and 6) is made inside that
-run, so its launch counts start at 0 there; the checks and timings of
-phases 2 and 5 use engines of their own. Phases 7 and 8 set the counts
-of their paths to 0 just before driving them and read them just after.
-The line before the last is a JSON object with each kernel's launches on
-its path (phase 4 for K1-K6, phases 7 and 8 for the gap DP and the MEM
-walk), its largest difference from the plain version, and both times
-(at the 8 Mbp index for the FM kernels). The last line is ``{"ok":
+9. ``[mesh]``, the device grid (``--mesh``): holds each ``Sharded``
+   kernel (the FM kernels reading a range-sharded table, one allocation
+   a shard, all on the one card) exactly against its plain version over
+   the same ``ShardedTable`` and against its ``Flat`` twin: the locates
+   on every toy row at index 2, 3 and 7 (narrow) or 4 (wide), whose
+   boundaries fall in the Occ, genome and sample rows; the K = 11 table
+   builds, whole, and the seed scans with them on reads across the toy
+   table's genome-row boundaries and on 4,096 reads of the 8 Mbp set at
+   index=2; the MEM walk on a task from every toy genome position;
+   times each at phase 2's shapes; then runs the nine goldens through
+   ``dart-tpu-torch --mesh data=2,index=2`` and the whole ``8mbp_se``
+   set at ``--mesh data=2`` and ``data=2,index=2``, narrow and wide,
+   requiring every output byte-equal to the goldens and to phase 4's
+   single-engine run, and prints wall time, reads/s and each data
+   group's launches;
+10. ``[dryrun]``: ``dart_tpu_torch.entry.dryrun_multichip(4, "cuda")``
+    (the sharded engine's toy checks, the 4 Mbp overflow proof with a
+    whole aligner run, the scaling lines of slots sharing one card);
+11. ``[dist]``: two ``dart-tpu-torch --dist-nprocs 2`` processes each
+    for goldens c3, c6 and c7 and for the first 20,000 reads of
+    ``8mbp_se``, all eight processes at once on the card, requiring the
+    merged outputs byte-equal to the goldens and to a one-process run;
+12. ``[profile]``: one ``--profile`` run of ``8mbp_se``, whose
+    ``torch.profiler`` trace must name the seed-scan kernel; prints the
+    kernels' summed time and the card's idle share of the traced window.
+
+Every engine of a main-path run (phases 4, 6 and the grid runs of 9) is
+made inside that run, so its launch counts start at 0 there; the checks
+and timings of phases 2, 5 and 9 use engines of their own. Phases 7 and
+8 set the counts of their paths to 0 just before driving them and read
+them just after, and the dry run makes its engines inside it. The line
+before the last is a JSON object with each kernel's launches on its
+path (phase 4 for K1-K6, phases 7 and 8 for the gap DP and the MEM
+walk, phase 9's ``data=2,index=2`` runs for the ``*_sharded`` kernels
+but the MEM walk's, which is the dry run's), its largest difference
+from the plain version, and both times (at the 8 Mbp index for the FM
+kernels, at index=2 for the sharded ones). The last line is ``{"ok":
 true, "device": {...}}``; it is printed only when every phase passed,
 and the exit code is 0 only then.
 """
@@ -119,6 +149,11 @@ N_PARITY = 5000
 N_NW_READS = 2000  # reads through the Python pipeline in phase 7
 N_TIMED = 65536  # gap-DP pairs and MEM-walk tasks timed at once
 N_WALK_READS = 4096  # reads seeded from MEM walks in phase 8
+N_DIST_READS = 20000  # reads of 8mbp_se through the two-process run
+# the kernels reading a range-sharded table (--mesh ...,index=N)
+SHARDED = ("seed_scan_sharded", "locate_sharded", "lut_build_sharded",
+           "seed_scan_wide_sharded", "locate_wide_sharded",
+           "lut_build_wide_sharded", "mem_walks_sharded")
 
 
 def log(msg: str) -> None:
@@ -448,10 +483,13 @@ def phase_goldens(toy, device: str) -> None:
             "the CLI and through the wide engine")
 
 
-def align(idx, ds, out: str, tag: str, device: str, wide: bool) -> dict:
-    """One main-path run over the whole read set: the engine (and its
-    launch counts, which start at 0) is made inside it. Logs and
-    returns wall time, reads/s, set-up seconds and launch counts."""
+def align(idx, ds, out: str, tag: str, device: str, wide: bool,
+          mesh: str = "") -> dict:
+    """One main-path run over the whole read set, on one engine or, with
+    ``mesh``, on a device grid: the engine (and its launch counts, which
+    start at 0) is made inside it. Logs and returns wall time, reads/s,
+    set-up seconds and launch counts (and each data group's, on a
+    grid)."""
     from dart_tpu.cli import parse_args
 
     from dart_tpu_torch.aligner import default_lut_k, run
@@ -459,7 +497,8 @@ def align(idx, ds, out: str, tag: str, device: str, wide: bool) -> dict:
     err = io.StringIO()
     cfg = parse_args(["-i", ds["prefix"], "-f", ds["fq"][0], "-o",
                       os.path.join(out, f"{tag}.sam"), "-j",
-                      os.path.join(out, f"{tag}.tab"), "-silent", "--stats"])
+                      os.path.join(out, f"{tag}.tab"), "-silent", "--stats",
+                      *(["--mesh", mesh] if mesh else [])])
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()), \
             contextlib.redirect_stderr(err):
@@ -472,10 +511,14 @@ def align(idx, ds, out: str, tag: str, device: str, wide: bool) -> dict:
     eng = aligner.engine
     n = aligner.counters["total"]
     # the MEM walk serves another seeding path (phase 8), not this one
-    launches = {k: v for k, v in eng.launches.items() if k != "mem_walks"}
+    launches = {k: v for k, v in eng.launches.items()
+                if not k.startswith("mem_walks")}
+    slots = [{k: v for k, v in s.items() if not k.startswith("mem_walks")}
+             for s in getattr(eng, "slot_launches", [])]
     log(f"  {tag}: {n} reads in {wall:.3f} s wall incl. set-up "
         f"({n / wall:.0f} reads/s); set-up {fmt_setup(eng)}; launches "
-        + ", ".join(f"{k} {v}" for k, v in launches.items()))
+        + ", ".join(f"{k} {v}" for k, v in launches.items())
+        + (f"; per data group {slots}" if slots else ""))
     for line in err.getvalue().splitlines():
         if line.startswith("[stats]"):
             log(f"    {line}")
@@ -490,7 +533,7 @@ def align(idx, ds, out: str, tag: str, device: str, wide: bool) -> dict:
     if aligner.native is None:
         raise AssertionError("the native host pipeline did not load")
     return {"launches": launches, "wall_s": wall, "reads": n,
-            "setup_s": eng.setup_s}
+            "setup_s": eng.setup_s, "slot_launches": slots}
 
 
 def require_same(out: str, a: str, b: str, what: str) -> None:
@@ -812,6 +855,442 @@ def phase_mem_walks(toy, big, ds, device: str, n_timed: int,
     return res
 
 
+def boundary_reads(idx, n_shards: int, wide: bool):
+    """Exact 100-base reads across the text positions where a boundary
+    of n_shards range shards splits the genome rows of the table: their
+    compare windows read genome words from both sides of it."""
+    import numpy as np
+
+    from dart_tpu_torch.ops.layout import tables_from_index
+
+    tabs = tables_from_index(idx, wide=wide, index_shards=n_shards)
+    rows = tabs["table"].shape[0] // n_shards
+    codes = []
+    for s in range(1, n_shards):
+        if tabs["ref_off"] <= s * rows < tabs["sad_off"]:
+            g = (s * rows - tabs["ref_off"]) * (256 if wide else 128)
+            for back in (40, 57, 90):
+                lo = min(max(g - back, 0), idx.seq_len - 100)
+                codes.append(idx.ref_codes[lo:lo + 100])
+    return np.array(codes, dtype=np.uint8).reshape(-1, 100)
+
+
+def sharded(idx, device: str, n: int, **kw):
+    """An engine whose table is range-sharded over n slots of the card,
+    each a separate allocation."""
+    from dart_tpu_torch.ops.fm_torch import FMIndexTorch
+
+    return FMIndexTorch(idx, device, shard_devices=[device] * n, **kw)
+
+
+def phase_mesh_kernels(toy, big, ds, device: str, seed: int) -> dict:
+    """Each Sharded kernel against its plain version over the same
+    ShardedTable, exactly, and against the Flat kernel: the locates on
+    every toy row at index 2, 3 and 7 (narrow) / 4 (wide), whose
+    boundaries fall in the Occ, genome and sample rows; the K-mer table
+    builds whole and the seed scans with it on 4,096 reads of the 8 Mbp
+    set at index=2 and on reads across the toy table's genome
+    boundaries; the MEM walk on a task from every toy genome position.
+    Then each timed with its plain version at the main path's shapes."""
+    import numpy as np
+    import torch
+
+    from dart_tpu_torch.ops.fm_torch import FMIndexTorch
+
+    rng = np.random.default_rng(seed)
+    res = {}
+
+    def note(name, err):
+        res.setdefault(name, {"max_abs_err": 0})
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+
+    for wide in (False, True):
+        sfx = "_wide" if wide else ""
+        dt = torch.int64 if wide else torch.int32
+        rows = torch.arange(toy.seq_len, dtype=dt, device=device)
+        want = FMIndexTorch(toy, device, wide=wide).locate_rows(rows)
+        for n in (2, 3, 4 if wide else 7):
+            eng = sharded(toy, device, n, wide=wide)
+            got = eng.locate_rows(rows)
+            note(f"locate{sfx}_sharded", check_equal(
+                f"locate{sfx}_sharded (toy, index={n})", got,
+                eng.plain_locate(rows)))
+            check_equal(f"locate{sfx}_sharded vs flat (toy, index={n})", got,
+                        want)
+        log(f"  locate{sfx}_sharded == plain == flat on every toy row at "
+            f"index=2, 3, {4 if wide else 7}")
+
+        codes = np.concatenate([boundary_reads(toy, n, wide)
+                                for n in (2, 3, 4 if wide else 7)])
+        t, words, S = pack(codes, np.full(len(codes), 100, np.int32), device)
+        flat = FMIndexTorch(toy, device, lut_k=LUT_K, wide=wide)
+        for n in (2, 3):
+            eng = sharded(toy, device, n, lut_k=LUT_K, wide=wide)
+            note(f"lut_build{sfx}_sharded", check_equal(
+                f"lut_build{sfx}_sharded (toy, index={n})", eng.lut,
+                eng.plain_build_lut()))
+            got = eng.seed_scan(t, words, S)
+            note(f"seed_scan{sfx}_sharded", check_equal(
+                f"seed_scan{sfx}_sharded (toy boundaries, index={n})", got,
+                eng.plain_seed_scan(t, words, S)))
+            check_equal(f"seed_scan{sfx}_sharded vs flat (toy)", got,
+                        flat.seed_scan(t, words, S))
+        log(f"  seed_scan{sfx}_sharded == plain == flat on {len(codes)} reads "
+            "across the toy table's genome-row boundaries, K-mer table "
+            "built through the sharded access == plain, index=2 and 3")
+
+    G, L = toy.genome_size, 64
+    padded = np.concatenate([toy.ref_codes[:G], np.full(L, 4, np.uint8)])
+    chars = torch.from_numpy(np.lib.stride_tricks.sliding_window_view(
+        padded, L)[:G].copy()).to(device)
+    valid = torch.from_numpy(np.arange(L)[None, :] <
+                             (G - np.arange(G))[:, None]).to(device)
+    eng = sharded(toy, device, 2)
+    want = FMIndexTorch(toy, device).mem_walk_rows(chars, valid)
+    for name, g, p, f in zip(("lens", "x0", "x2"),
+                             eng.mem_walk_rows(chars, valid),
+                             eng.plain_mem_walks(chars, valid), want):
+        note("mem_walks_sharded", check_equal(
+            f"mem_walks_sharded {name} (toy)", g, p))
+        check_equal(f"mem_walks_sharded {name} vs flat (toy)", g, f)
+    log(f"  mem_walks_sharded == plain == flat, a task from each of the {G} "
+        "toy genome positions, index=2")
+
+    engs = {w: sharded(big, device, 2, lut_k=LUT_K, wide=w)
+            for w in (False, True)}
+    codes, rlens = read_fastq(ds["fq"][0], MAIN_R)
+    sc, sl = codes[:4096].copy(), rlens[:4096].copy()
+    mm = rng.random(sc.shape) < 0.02
+    sc = np.where(mm, (sc + rng.integers(1, 4, sc.shape)) % 4, sc)
+    sc[rng.random(len(sc)) < 0.1, 50] = 4
+    t, words, S = pack(sc.astype(np.uint8), sl, device)
+    for wide, eng in engs.items():
+        sfx = "_wide" if wide else ""
+        note(f"lut_build{sfx}_sharded", check_equal(
+            f"lut_build{sfx}_sharded (8 Mbp, index=2)", eng.lut,
+            eng.plain_build_lut()))
+        got = eng.seed_scan(t, words, S)
+        note(f"seed_scan{sfx}_sharded", check_equal(
+            f"seed_scan{sfx}_sharded (8 Mbp, index=2)", got,
+            eng.plain_seed_scan(t, words, S)))
+    log(f"  8 Mbp at index=2: lut_build_sharded and lut_build_wide_sharded "
+        f"== plain (whole K={LUT_K} tables), seed_scan_sharded and "
+        f"seed_scan_wide_sharded == plain on {len(sc)} reads")
+
+    if device != "cuda":
+        return res
+    times = main_shape_times(engs, codes, rlens, rng, device,
+                             "8 Mbp, index=2")
+    for k, v in times.items():
+        note(k + "_sharded", v.pop("max_abs_err"))
+        v.pop("ms_without_lut", None)
+        res[k + "_sharded"].update(v)
+    chars, valid = walk_tasks(codes, rlens, rng, 128)
+    c, v = (torch.from_numpy(a).to(device) for a in (chars, valid))
+    eng = engs[False]
+    want, plain_ms = timed_once(lambda: eng.plain_mem_walks(c, v))
+    for g, w in zip(eng.mem_walk_rows(c, v), want):
+        note("mem_walks_sharded", check_equal("mem_walks_sharded (8 Mbp)",
+                                              g, w))
+    res["mem_walks_sharded"].update(
+        ms=time_ms(lambda: eng.mem_walk_rows(c, v), 20), plain_ms=plain_ms)
+    log(f"  mem_walks_sharded on {len(chars)} x 128 tasks of the 8 Mbp set: "
+        f"kernel {res['mem_walks_sharded']['ms']:.4f} ms, plain "
+        f"{plain_ms:.3f} ms")
+    return res
+
+
+def phase_mesh(toy, big, ds, device: str, seed: int) -> dict:
+    """The Sharded kernels against their plain versions, then the mesh
+    path (``mesh_path``)."""
+    return {"kernels": phase_mesh_kernels(toy, big, ds, device, seed),
+            "runs": mesh_path(big, ds, device)}
+
+
+def mesh_path(big, ds, device: str) -> dict:
+    """The mesh path: the nine goldens through ``dart-tpu-torch --mesh
+    data=2,index=2``, then the 8mbp_se set at ``--mesh data=2`` and
+    ``data=2,index=2``, narrow and wide, each byte-equal to phase 4's
+    single-engine output."""
+    prefix = os.path.join(GOLD, "index", "toy")
+    out = os.path.join(WORK, "mesh")
+    os.makedirs(out, exist_ok=True)
+    for name, flags in GOLDEN.items():
+        flags = [os.path.join(DATA, f) if f.endswith((".fa", ".fq", ".gz"))
+                 else f for f in flags]
+        sam = os.path.join(out, f"{name}.sam")
+        tab = os.path.join(out, f"{name}.junctions.tab")
+        run_cli(["-i", prefix, *flags, "-o", sam, "-j", tab, "-silent",
+                 "--device", device, "--mesh", "data=2,index=2"])
+        for got, gold in ((sam, f"{name}.sam"),
+                          (tab, f"{name}.junctions.tab")):
+            if not same_bytes(got, os.path.join(GOLD, gold)):
+                raise AssertionError(f"{name} (--mesh data=2,index=2): "
+                                     f"{gold} differs from golden")
+    log("  the nine goldens through dart-tpu-torch --mesh data=2,index=2: "
+        "SAM and junctions.tab byte-equal")
+    single = os.path.join(WORK, "scale")
+    res = {}
+    for mesh in ("data=2", "data=2,index=2"):
+        for wide in (False, True):
+            tag = f"{mesh.replace('=', '').replace(',', '_')}" + \
+                ("_wide" if wide else "")
+            res[tag] = align(big, ds, out, tag, device, wide, mesh=mesh)
+            for ext in ("sam", "tab"):
+                if not same_bytes(os.path.join(out, f"{tag}.{ext}"),
+                                  os.path.join(single, f"narrow.{ext}")):
+                    raise AssertionError(f"--mesh {mesh}: {tag}.{ext} "
+                                         "differs from the single engine's")
+    log(f"  all {res['data2']['reads']} reads at --mesh data=2 and "
+        "data=2,index=2, narrow and wide: SAM and junction table byte-equal "
+        "to phase 4's single-engine run")
+    return res
+
+
+def phase_dryrun(device: str) -> dict:
+    from dart_tpu_torch.entry import dryrun_multichip
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = dryrun_multichip(4, device, work=os.path.join(WORK, "dryrun"))
+    for line in buf.getvalue().splitlines():
+        if not line.startswith("\t") and line.strip():
+            log(f"  {line}")
+    launches = res["toy"]["launches"]
+    if device == "cuda" and not all(launches.values()):
+        raise AssertionError(f"the dry run launched no kernel of {launches}")
+    return res
+
+
+def phase_dist(big, ds, device: str, n_reads: int) -> dict:
+    """Two ``dart-tpu-torch --dist-nprocs 2`` processes for each of the
+    goldens c3, c6, c7 and the first n_reads reads of 8mbp_se, all pairs
+    at once (both ranks of a pair share the card when there is one):
+    the merged outputs byte-equal to the goldens and to a one-process
+    run."""
+    import socket
+
+    out = os.path.join(WORK, "dist")
+    os.makedirs(out, exist_ok=True)
+    head = head_fastq(ds["fq"][0], n_reads, out)
+    one = ["-i", ds["prefix"], "-f", head, "-o", os.path.join(out, "one.sam"),
+           "-j", os.path.join(out, "one.tab"), "-silent"]
+    run_cli([*one, "--device", device])
+    jobs = {"8mbp_se": (["-i", ds["prefix"], "-f", head],
+                        os.path.join(out, "one"))}
+    for name in ("c3_spliced", "c6_pe_gz", "c7_pe_inter"):
+        flags = [os.path.join(DATA, f) if f.endswith((".fa", ".fq", ".gz"))
+                 else f for f in GOLDEN[name]]
+        jobs[name] = (["-i", os.path.join(GOLD, "index", "toy"), *flags],
+                      os.path.join(GOLD, name))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    procs = []
+    t0 = time.perf_counter()
+    for name, (args, _) in jobs.items():
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        for pid in range(2):
+            cmd = [sys.executable, "-m", "dart_tpu_torch.cli", *args, "-o",
+                   os.path.join(out, f"{name}.sam"), "-j",
+                   os.path.join(out, f"{name}.tab"), "-silent", "--device",
+                   device, "--dist-coordinator", f"127.0.0.1:{port}",
+                   "--dist-nprocs", "2", "--dist-pid", str(pid)]
+            procs.append((name, pid, subprocess.Popen(
+                cmd, cwd=HERE, env=env, stdout=subprocess.DEVNULL,
+                stderr=subprocess.PIPE, text=True)))
+    try:
+        for name, pid, p in procs:
+            err = p.communicate(timeout=300)[1]
+            if p.returncode != 0:
+                raise AssertionError(f"{name} rank {pid} -> {p.returncode}:\n"
+                                     f"{err[-3000:]}")
+    finally:
+        for _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for name, (_, want) in jobs.items():
+        for ext, wext in (("sam", "sam"), ("tab", "junctions.tab"
+                                           if name != "8mbp_se" else "tab")):
+            if not same_bytes(os.path.join(out, f"{name}.{ext}"),
+                              f"{want}.{wext}"):
+                raise AssertionError(f"--dist-nprocs 2, {name}: the merged "
+                                     f"{ext} differs from the one-process "
+                                     "output")
+    log(f"  {len(procs)} processes ({len(jobs)} pairs, at once) in "
+        f"{wall:.1f} s: c3, c6, c7 byte-equal to the goldens and the first "
+        f"{n_reads} reads of 8mbp_se to the one-process run")
+    return {"wall_s": wall, "pairs": len(jobs)}
+
+
+def trace_summary(trace_dir: str) -> dict:
+    """Kernel time and the device's idle share from the torch.profiler
+    trace in trace_dir: kernels summed, and the share of the traced
+    window (first to last event) in which no kernel or copy ran."""
+    import glob
+    import gzip
+
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json*"))
+    if len(files) != 1:
+        raise AssertionError(f"expected one trace in {trace_dir}, found "
+                             f"{files}")
+    with (gzip.open if files[0].endswith(".gz") else open)(files[0],
+                                                           "rb") as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                 "gpu_memset")]
+    kernels = [e for e in dev if e["cat"] == "kernel"]
+    if not kernels:
+        raise AssertionError("torch.profiler traced no kernel on the card")
+    busy, end = 0.0, None
+    for e in sorted(dev, key=lambda e: e["ts"]):
+        lo, hi = e["ts"], e["ts"] + e["dur"]
+        if end is None or lo > end:
+            busy += hi - lo
+            end = hi
+        elif hi > end:
+            busy += hi - end
+            end = hi
+    start = min(e["ts"] for e in events)
+    stop = max(e["ts"] + e["dur"] for e in events)
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e["name"]] = by_name.get(e["name"], 0) + e["dur"]
+    return {"kernel_ms": sum(by_name.values()) / 1e3,
+            "window_s": (stop - start) / 1e6,
+            "idle_share": 1 - busy / (stop - start),
+            "kernels_ms": {k: v / 1e3 for k, v in by_name.items()}}
+
+
+def kernel_name(name: str) -> str:
+    """A traced kernel's template name, without its namespace and
+    parameter list."""
+    import re
+
+    m = re.search(r"\w+_kernel(<[^(]*>)?", name)
+    return m.group(0) if m else name[:60]
+
+
+def phase_profile(ds, device: str) -> dict:
+    """One ``--profile`` run of 8mbp_se: the trace names the seed-scan
+    kernel; its kernel time and the device's idle share; the SAM equal
+    to phase 4's."""
+    import shutil
+
+    out = os.path.join(WORK, "profile")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    trace_dir = os.path.join(out, "trace")
+    run_cli(["-i", ds["prefix"], "-f", ds["fq"][0], "-o",
+             os.path.join(out, "p.sam"), "-j", os.path.join(out, "p.tab"),
+             "-silent", "--device", device, "--profile", trace_dir])
+    require_same(out, "p", os.path.join("..", "scale", "narrow"),
+                 "--profile run")
+    res = trace_summary(trace_dir)
+    if not any("seed_scan_kernel" in k for k in res["kernels_ms"]):
+        raise AssertionError("the trace names no seed_scan_kernel")
+    top = sorted(res["kernels_ms"].items(), key=lambda kv: -kv[1])[:4]
+    log(f"  trace of {res['window_s']:.3f} s: kernels {res['kernel_ms']:.3f} "
+        f"ms in all, device idle {100 * res['idle_share']:.2f}% of the "
+        "window; " + "; ".join(f"{kernel_name(k)} {v:.3f} ms"
+                               for k, v in top))
+    return res
+
+
+def phase_cards(toy, big, ds, n_dist: int) -> dict:
+    """``--cards``, on two cards or more: the Sharded kernels with their
+    shards on cuda:0, cuda:1, ... read peer to peer, against their plain
+    versions and the Flat kernels; the 8 Mbp seed scan timed flat, with
+    two shards on one card and with two shards on two cards; 8mbp_se at
+    ``--mesh index=2`` (``data=2,index=2`` from four cards) and
+    ``data=<cards>`` byte-equal to one engine's run; the two-process runs
+    of phase 11 (the ranks on two cards) and the dry run over four
+    slots."""
+    import numpy as np
+    import torch
+
+    from dart_tpu_torch.ops.fm_torch import FMIndexTorch
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        raise AssertionError(f"--cards needs two cards or more, found {count}")
+    cards = [f"cuda:{i}" for i in range(count)]
+    res = {"cards": count}
+    G, L = toy.genome_size, 64
+    padded = np.concatenate([toy.ref_codes[:G], np.full(L, 4, np.uint8)])
+    chars = torch.from_numpy(np.lib.stride_tricks.sliding_window_view(
+        padded, L)[:G].copy()).cuda()
+    valid = torch.from_numpy(np.arange(L)[None, :] <
+                             (G - np.arange(G))[:, None]).cuda()
+    for wide in (False, True):
+        dt = torch.int64 if wide else torch.int32
+        rows = torch.arange(toy.seq_len, dtype=dt, device="cuda:0")
+        flat = FMIndexTorch(toy, "cuda:0", lut_k=LUT_K, wide=wide)
+        for n in sorted({2, min(count, 4)}):
+            eng = FMIndexTorch(toy, "cuda:0", lut_k=LUT_K, wide=wide,
+                               shard_devices=cards[:n])
+            what = f"toy, {n} shards on {n} cards, wide={wide}"
+            got = eng.locate_rows(rows)
+            check_equal(f"locate ({what})", got, eng.plain_locate(rows))
+            check_equal(f"locate vs flat ({what})", got,
+                        flat.locate_rows(rows))
+            check_equal(f"lut_build ({what})", eng.lut, eng.plain_build_lut())
+            check_equal(f"lut_build vs flat ({what})", eng.lut, flat.lut)
+            codes = np.concatenate([boundary_reads(toy, m, wide)
+                                    for m in (2, 3, 4)])
+            t, words, S = pack(codes, np.full(len(codes), 100, np.int32),
+                               "cuda:0")
+            got = eng.seed_scan(t, words, S)
+            check_equal(f"seed_scan ({what})", got,
+                        eng.plain_seed_scan(t, words, S))
+            check_equal(f"seed_scan vs flat ({what})", got,
+                        flat.seed_scan(t, words, S))
+            if not wide:
+                for g, p, f in zip(eng.mem_walk_rows(chars, valid),
+                                   eng.plain_mem_walks(chars, valid),
+                                   flat.mem_walk_rows(chars, valid)):
+                    check_equal(f"mem_walks ({what})", g, p)
+                    check_equal(f"mem_walks vs flat ({what})", g, f)
+            log(f"  {what}: locate, lut_build, seed_scan"
+                + ("" if wide else ", mem_walks")
+                + " == plain == flat, the shards read peer to peer")
+
+    codes, rlens = read_fastq(ds["fq"][0], MAIN_R)
+    t, words, S = pack(codes, rlens, "cuda:0")
+    want = None
+    for what, devs in (("flat", None), ("2 shards on one card",
+                                        ["cuda:0"] * 2),
+                       ("2 shards on 2 cards", cards[:2])):
+        eng = FMIndexTorch(big, "cuda:0", lut_k=LUT_K, shard_devices=devs)
+        got = eng.seed_scan(t, words, S)
+        if want is None:
+            want = got
+        check_equal(f"seed_scan 8 Mbp ({what}) vs flat", got, want)
+        res[f"seed_scan_ms ({what})"] = ms = time_ms(
+            lambda: eng.seed_scan(t, words, S), 5)
+        log(f"  seed_scan on the 8 Mbp index, {len(rlens)} reads, {what}: "
+            f"{ms:.4f} ms")
+
+    out = os.path.join(WORK, "cards")
+    os.makedirs(out, exist_ok=True)
+    res["single"] = align(big, ds, out, "single", "cuda", False)
+    for mesh in ("data=2,index=2" if count >= 4 else "index=2",
+                 f"data={count}"):
+        tag = mesh.replace("=", "").replace(",", "_")
+        res[tag] = align(big, ds, out, tag, "cuda", False, mesh=mesh)
+        require_same(out, tag, "single", f"--mesh {mesh} on {count} cards")
+        log(f"  8mbp_se at --mesh {mesh} over {count} cards: SAM and "
+            "junction table byte-equal to one engine's run")
+    res["dist"] = phase_dist(big, ds, "cuda", n_dist)
+    res["dryrun"] = phase_dryrun("cuda")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -821,8 +1300,9 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
-    log(smi.stdout.strip().splitlines()[0] if smi.returncode == 0
-        else f"nvidia-smi failed: {smi.stderr.strip()}")
+    for line in (smi.stdout.strip().splitlines() if smi.returncode == 0
+                 else [f"nvidia-smi failed: {smi.stderr.strip()}"]):
+        log(line)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     from dart_tpu.index import load_index
@@ -848,6 +1328,22 @@ def main() -> int:
         log(f"  {os.path.relpath(lib, HERE)}: built in {secs:.1f} s")
         return secs
 
+    if "--cards" in sys.argv[1:]:
+        phase("build", do_build)
+        phase("dataset", make_dataset)
+        if "dataset" in state and "build" in state:
+            ds = state["dataset"]
+            phase("cards", lambda: phase_cards(
+                load_index(os.path.join(GOLD, "index", "toy")),
+                load_index(ds["prefix"]), ds, N_DIST_READS))
+        if failed or "cards" not in state:
+            log(f"chip_smoke --cards: failed phases: {', '.join(failed)}")
+            return 1
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     gen50 = start_dataset("50mbp_se")
     try:
         phase("build", do_build)
@@ -865,6 +1361,13 @@ def main() -> int:
                                          20261017))
             phase("mem_walks", lambda: phase_mem_walks(
                 toy, big, ds, "cuda", N_TIMED, N_WALK_READS, 20261018))
+            if "scale" in state:
+                phase("mesh", lambda: phase_mesh(toy, big, ds, "cuda",
+                                                 20261019))
+                phase("dryrun", lambda: phase_dryrun("cuda"))
+                phase("dist", lambda: phase_dist(big, ds, "cuda",
+                                                 N_DIST_READS))
+                phase("profile", lambda: phase_profile(ds, "cuda"))
         phase("dataset50", lambda: finish_dataset(gen50, "50mbp_se"))
         if "dataset50" in state and "build" in state:
             ds50 = state["dataset50"]
@@ -876,7 +1379,8 @@ def main() -> int:
         if gen50.poll() is None:
             gen50.kill()
             gen50.wait()
-    if failed or not {"scale", "scale50", "nw", "mem_walks"} <= set(state):
+    if failed or not {"scale", "scale50", "nw", "mem_walks", "mesh",
+                      "dryrun", "dist", "profile"} <= set(state):
         log(f"chip_smoke: failed phases: {', '.join(failed) or 'none'}")
         return 1
     kern, scale = state["kernels"], state["scale"]
@@ -898,6 +1402,20 @@ def main() -> int:
                      "replaces": replaces, "launches": r["launches"],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"]})
+    # the Sharded kernels: launches on the mesh path (data=2,index=2,
+    # narrow and wide; the MEM walk in the dry run), times at index=2
+    runs, mk = state["mesh"]["runs"], state["mesh"]["kernels"]
+    launches = {**runs["data2_index2"]["launches"],
+                **runs["data2_index2_wide"]["launches"],
+                "mem_walks_sharded":
+                    state["dryrun"]["toy"]["launches"]["mem_walks_sharded"]}
+    for k in SHARDED:
+        base = k[:-len("_sharded")]
+        rows.append({"name": k, "route": "cuda", "source": FM_SOURCE,
+                     "replaces": KERNELS.get(base, MEM_WALKS_REPLACES),
+                     "launches": launches[k],
+                     "max_abs_err": mk[k]["max_abs_err"], "ms": mk[k]["ms"],
+                     "plain_ms": mk[k]["plain_ms"]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

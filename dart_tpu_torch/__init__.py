@@ -14,7 +14,11 @@ the engine that serves them to the shared seeding code
 gap DP of ``dart_tpu.ops.nw_pallas`` (``csrc/nw_kernels.cu``, plain
 version ``ops.nw_plain``, batch entry ``ops.nw_torch.nw_align_batch``)
 and the counterpart of ``__graft_entry__.entry()`` (``entry``: MEM
-walks, then SA locate, on the toy index).
+walks, then SA locate, on the toy index). Beyond one card it has the
+(data, index) device grid of ``--mesh`` (``parallel.mesh``, with the
+range-sharded table of ``ops.layout.ShardedTable`` read by the kernels'
+``Sharded`` access), multi-host runs over ``torch.distributed``
+(``parallel.distributed``) and ``entry.dryrun_multichip``.
 
 This package imports ``torch`` and never ``jax``.
 """

@@ -43,6 +43,29 @@
 // The TPU form's merged 2R-row gather, select trees, one-hot reductions and
 // masks for every mode are not carried over: a thread simply branches.
 //
+// Every read of the merged table goes through a table-access parameter
+// beside the layout trait (the kernels are templates on the access, whose
+// Layout is the trait):
+//
+//   Flat: the table is one allocation, read through one pointer (the
+//   dart_fm_* entries, the single-device engine).
+//
+//   Sharded: the table is range-sharded by row over the cards of an
+//   `index` mesh axis (dart_fm_*_sharded, the counterparts of the programs
+//   that dart_tpu/parallel/mesh.py::ShardedFMIndex and
+//   fm_jax_wide.py::FMIndexJaxWide(index_mesh=...) run GSPMD-partitioned).
+//   Shard s holds rows [s * rows, (s + 1) * rows), a separate allocation on
+//   its card; a small device array holds each shard's base address. A row
+//   read divides its row number by `rows` and reads the base (an L1 hit
+//   after the first) before the row itself: one more dependent load a
+//   step, where GSPMD moved rows between chips with collectives. The
+//   kernel runs on the first card of its group and reads the other shards
+//   over peer-to-peer (dart_enable_peer_access). The three places that
+//   read the table go through it: the Occ rows (load_row), the SA samples
+//   (Layout::sample) and the genome words of the compare (Genome, one
+//   word at a time, since the two words of a 16-base window may sit in
+//   different shards).
+//
 // Each C entry launches on the given stream, does not synchronise, and
 // returns cudaGetLastError().
 
@@ -92,8 +115,10 @@ struct Narrow {
   // Occ of base c at the row start
   __device__ static int occ(const uint4* v, int c) { return (int)sel4(v[0], c); }
 
-  __device__ static int sample(const uint32_t* t, int sad_off, int srow) {
-    return (int)__ldg(t + ((size_t)sad_off + (srow >> 3)) * 8 + (srow & 7));
+  template <class A>
+  __device__ static int sample(const A& a, int sad_off, int srow) {
+    return (int)__ldg(a.row_words((size_t)sad_off + (srow >> 3)) +
+                      (srow & 7));
   }
 
   __device__ static void lut_load(const void* lut, uint32_t key, int& x0,
@@ -120,9 +145,11 @@ struct Wide {
     return (long long)sel4(v[0], c) | ((long long)sel4(v[1], c) << 32);
   }
 
-  __device__ static long long sample(const uint32_t* t, long long sad_off,
+  template <class A>
+  __device__ static long long sample(const A& a, long long sad_off,
                                      long long srow) {
-    const uint32_t* s = t + (size_t)(sad_off + (srow >> 3)) * 16 + (srow & 7);
+    const uint32_t* s = a.row_words((size_t)(sad_off + (srow >> 3))) +
+                        (srow & 7);
     return (long long)__ldg(s) | ((long long)__ldg(s + 8) << 32);
   }
 
@@ -144,13 +171,81 @@ struct Wide {
   }
 };
 
+// The table in one allocation.
 template <class L>
-__device__ __forceinline__ void load_row(const uint4* __restrict__ t4,
-                                         typename L::I row,
-                                         uint4 (&v)[L::kVecs]) {
+struct Flat {
+  using Layout = L;
+  const uint4* __restrict__ t4;
+
+  // the first 16-byte vector of row r
+  __device__ __forceinline__ const uint4* row(size_t r) const {
+    return t4 + r * L::kVecs;
+  }
+  __device__ __forceinline__ const uint32_t* row_words(size_t r) const {
+    return reinterpret_cast<const uint32_t*>(row(r));
+  }
+
+  // The genome's 32-bit words (16 bases each), from row ref_off on.
+  struct Genome {
+    const uint32_t* __restrict__ ref;
+    __device__ __forceinline__ uint32_t operator[](long long i) const {
+      return __ldg(ref + i);
+    }
+  };
+  __device__ __forceinline__ Genome genome(size_t ref_off) const {
+    return {row_words(ref_off)};
+  }
+};
+
+// The table range-sharded by row: `rows` rows a shard, shard s from
+// base[s]. Row numbers stay below 2^32 (the host checks), so the division
+// is 32-bit.
+template <class L>
+__device__ __forceinline__ const uint4* shard_row(
+    const unsigned long long* __restrict__ base, unsigned rows, size_t r) {
+  const unsigned s = (unsigned)r / rows;
+  return reinterpret_cast<const uint4*>(__ldg(base + s)) +
+         (size_t)((unsigned)r - s * rows) * L::kVecs;
+}
+
+template <class L>
+struct Sharded {
+  using Layout = L;
+  const unsigned long long* __restrict__ base;
+  unsigned rows;
+
+  __device__ __forceinline__ const uint4* row(size_t r) const {
+    return shard_row<L>(base, rows, r);
+  }
+  __device__ __forceinline__ const uint32_t* row_words(size_t r) const {
+    return reinterpret_cast<const uint32_t*>(row(r));
+  }
+
+  // Each word is routed on its own: word i and i + 1 may be in two shards.
+  struct Genome {
+    const unsigned long long* __restrict__ base;
+    unsigned rows;
+    size_t first;  // the table word where the genome starts
+    __device__ __forceinline__ uint32_t operator[](long long i) const {
+      constexpr unsigned kWords = 4 * L::kVecs;  // words a row
+      const size_t w = first + (size_t)i;
+      return __ldg(reinterpret_cast<const uint32_t*>(
+                       shard_row<L>(base, rows, w / kWords)) +
+                   (w % kWords));
+    }
+  };
+  __device__ __forceinline__ Genome genome(size_t ref_off) const {
+    return {base, rows, ref_off * 4 * L::kVecs};
+  }
+};
+
+template <class A>
+__device__ __forceinline__ void load_row(
+    const A& a, typename A::Layout::I row,
+    uint4 (&v)[A::Layout::kVecs]) {
+  const uint4* r = a.row((size_t)row);
 #pragma unroll
-  for (int j = 0; j < L::kVecs; ++j)
-    v[j] = __ldg(t4 + (size_t)row * L::kVecs + j);
+  for (int j = 0; j < A::Layout::kVecs; ++j) v[j] = __ldg(r + j);
 }
 
 // BWT word j (runtime) of a loaded Occ row
@@ -182,11 +277,11 @@ __device__ __forceinline__ int count_base(const uint4 (&v)[L::kVecs],
 }
 
 // Occ of all four bases in stored BWT [0, kk] (kk already primary-adjusted).
-template <class L>
-__device__ __forceinline__ void occ4(const uint4* __restrict__ t4,
-                                     typename L::I kk, typename L::I o[4]) {
+template <class A, class L = typename A::Layout>
+__device__ __forceinline__ void occ4(const A& a, typename L::I kk,
+                                     typename L::I o[4]) {
   uint4 v[L::kVecs];
-  load_row<L>(t4, kk >> L::kOccShift, v);
+  load_row(a, kk >> L::kOccShift, v);
   const int take = (int)(kk & ((1 << L::kOccShift) - 1)) + 1;
   const int c1 = count_base<L>(v, take, 0x55555555u);
   const int c2 = count_base<L>(v, take, 0xAAAAAAAAu);
@@ -200,16 +295,16 @@ __device__ __forceinline__ void occ4(const uint4* __restrict__ t4,
 // One backward-search extension (BWT_Search) of the bidirectional interval
 // (x0, x1, x2) by the base whose complement is ci. False, and the interval
 // untouched, when the extended pattern does not occur.
-template <class L>
-__device__ __forceinline__ bool extend(const uint4* __restrict__ t4,
+template <class A, class L = typename A::Layout>
+__device__ __forceinline__ bool extend(const A& a,
                                        const FmParams<typename L::I>& p,
                                        int ci, typename L::I& x0,
                                        typename L::I& x1, typename L::I& x2) {
   using I = typename L::I;
   const I q1 = x1 - 1, q2 = x1 - 1 + x2;
   I tk[4], tl[4];
-  occ4<L>(t4, max(q1 - (q1 >= p.primary), (I)0), tk);
-  occ4<L>(t4, max(q2 - (q2 >= p.primary), (I)0), tl);
+  occ4(a, max(q1 - (q1 >= p.primary), (I)0), tk);
+  occ4(a, max(q2 - (q2 >= p.primary), (I)0), tl);
   const I wi = tl[ci] - tk[ci];
   if (wi <= 0) return false;
   I start = x0 + (x1 <= p.primary && x1 + x2 - 1 >= p.primary);
@@ -238,15 +333,14 @@ __device__ __forceinline__ I sa_div(const FmParams<I>& p, I k) {
 
 // One LF step of bwt_sa (bwt_invPsi): the row of the suffix one text
 // position earlier. Row `primary` maps to 0.
-template <class L>
+template <class A, class L = typename A::Layout>
 __device__ __forceinline__ typename L::I lf_step(
-    const uint4* __restrict__ t4, const FmParams<typename L::I>& p,
-    typename L::I k) {
+    const A& a, const FmParams<typename L::I>& p, typename L::I k) {
   using I = typename L::I;
   if (k == p.primary) return 0;
   const I kk = k - (k > p.primary);
   uint4 v[L::kVecs];
-  load_row<L>(t4, kk >> L::kOccShift, v);
+  load_row(a, kk >> L::kOccShift, v);
   const int lo = (int)(kk & ((1 << L::kOccShift) - 1));
   const int c = (bwt_word<L>(v, lo >> 4) >> (2 * (15 - (lo & 15)))) & 3;
   const I occ = L::occ(v, c) + count_base<L>(v, lo + 1,
@@ -254,27 +348,24 @@ __device__ __forceinline__ typename L::I lf_step(
   return p.L2[c] + occ;
 }
 
-template <class L>
+template <class A, class L = typename A::Layout>
 __device__ __forceinline__ typename L::I sa_sample(
-    const uint4* __restrict__ t4, const FmParams<typename L::I>& p,
-    typename L::I k) {
-  return L::sample(reinterpret_cast<const uint32_t*>(t4), p.sad_off,
-                   sa_div(p, k));
+    const A& a, const FmParams<typename L::I>& p, typename L::I k) {
+  return L::sample(a, p.sad_off, sa_div(p, k));
 }
 
 // SA position of row k: LF-walk to a sampled row, add its sample. A walk
 // on a valid table ends within seq_len steps; the bound only keeps a
 // corrupt table from spinning a thread forever.
-template <class L>
+template <class A, class L = typename A::Layout>
 __device__ __forceinline__ typename L::I locate_row(
-    const uint4* __restrict__ t4, const FmParams<typename L::I>& p,
-    typename L::I k) {
+    const A& a, const FmParams<typename L::I>& p, typename L::I k) {
   typename L::I steps = 0;
   while (sa_rem(p, k) != 0 && steps <= p.seq_len) {
-    k = lf_step<L>(t4, p, k);
+    k = lf_step(a, p, k);
     ++steps;
   }
-  return steps + sa_sample<L>(t4, p, k);
+  return steps + sa_sample(a, p, k);
 }
 
 __device__ __forceinline__ int base_at(const uint32_t* codes, int i) {
@@ -305,16 +396,15 @@ __device__ __forceinline__ uint32_t n_window(const uint32_t* nmask,
 
 // Bases of the read from `cur` that equal the genome from `goff`, up to 16,
 // capped at the ends of read and genome. N bases never match.
-template <class I>
-__device__ __forceinline__ int compare16(const uint32_t* __restrict__ ref,
-                                         const uint32_t* codes,
+template <class G, class I>
+__device__ __forceinline__ int compare16(const G& ref, const uint32_t* codes,
                                          const uint32_t* nmask, int words,
                                          int rlen, I seq_len, int cur,
                                          I goff) {
   const I gi = goff >> 4;
   const int ga = (int)(goff & 15) * 2;
-  uint32_t gw = __ldg(ref + gi);
-  if (ga) gw = (gw << ga) | (__ldg(ref + gi + 1) >> (32 - ga));
+  uint32_t gw = ref[gi];
+  if (ga) gw = (gw << ga) | (ref[gi + 1] >> (32 - ga));
   const uint32_t rw = code_window(codes, words, cur);
   const uint32_t nb = n_window(nmask, words / 2, cur);
   // the window's 16 N bits, spread to 2 bits per base like the codes
@@ -346,12 +436,13 @@ __device__ __forceinline__ int compare16(const uint32_t* __restrict__ ref,
 // buf row: [codes, 16 per word | N bits, 32 per word | rlen]
 // out row: [n | rpos x S | len x S | k0 x S | freq x S], int narrow,
 // long long wide
-template <class L, bool kLut>
+template <class A, bool kLut>
 __global__ void __launch_bounds__(kThreads)
-seed_scan_kernel(const uint4* __restrict__ t4, FmParams<typename L::I> p,
+seed_scan_kernel(A a, FmParams<typename A::Layout::I> p,
                  const void* __restrict__ lut, int lut_k,
                  const uint32_t* __restrict__ buf, int R, int words, int S,
-                 typename L::I* __restrict__ out) {
+                 typename A::Layout::I* __restrict__ out) {
+  using L = typename A::Layout;
   using I = typename L::I;
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
@@ -359,8 +450,7 @@ seed_scan_kernel(const uint4* __restrict__ t4, FmParams<typename L::I> p,
   const uint32_t* codes = buf + (size_t)r * stride;
   const uint32_t* nmask = codes + words;
   const int rlen = (int)codes[stride - 1];
-  const uint32_t* ref = reinterpret_cast<const uint32_t*>(t4) +
-                        (size_t)p.ref_off * (4 * L::kVecs);
+  const auto ref = a.genome((size_t)p.ref_off);
   I* o = out + (size_t)r * (1 + 4 * S);
   for (int s = 1; s <= 4 * S; ++s) o[s] = 0;
 
@@ -397,7 +487,7 @@ seed_scan_kernel(const uint4* __restrict__ t4, FmParams<typename L::I> p,
     bool acc;
     for (;;) {
       if (x2 == 1 && cur < rlen) {
-        const I gbase = locate_row<L>(t4, p, x0) - pos;
+        const I gbase = locate_row(a, p, x0) - pos;
         int m;
         do {
           m = compare16(ref, codes, nmask, words, rlen, p.seq_len, cur,
@@ -411,7 +501,7 @@ seed_scan_kernel(const uint4* __restrict__ t4, FmParams<typename L::I> p,
         break;
       }
       if (cur < rlen && !is_n(nmask, cur) &&
-          extend<L>(t4, p, 3 - base_at(codes, cur), x0, x1, x2)) {
+          extend(a, p, 3 - base_at(codes, cur), x0, x1, x2)) {
         ++cur;
         continue;
       }
@@ -437,22 +527,24 @@ seed_scan_kernel(const uint4* __restrict__ t4, FmParams<typename L::I> p,
   o[0] = n;
 }
 
-template <class L>
+template <class A>
 __global__ void __launch_bounds__(kThreads)
-locate_kernel(const uint4* __restrict__ t4, FmParams<typename L::I> p,
-              const typename L::I* __restrict__ rows, typename L::I n,
-              typename L::I* __restrict__ out) {
-  using I = typename L::I;
+locate_kernel(A a, FmParams<typename A::Layout::I> p,
+              const typename A::Layout::I* __restrict__ rows,
+              typename A::Layout::I n,
+              typename A::Layout::I* __restrict__ out) {
+  using I = typename A::Layout::I;
   const I i = (I)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = locate_row<L>(t4, p, rows[i]);
+  if (i < n) out[i] = locate_row(a, p, rows[i]);
 }
 
 // One thread per K-mer (key = base-4, first base most significant): the
 // walk from its first base, extended by each following base.
-template <class L>
+template <class A>
 __global__ void __launch_bounds__(kThreads)
-lut_build_kernel(const uint4* __restrict__ t4, FmParams<typename L::I> p,
-                 int K, void* __restrict__ out) {
+lut_build_kernel(A a, FmParams<typename A::Layout::I> p, int K,
+                 void* __restrict__ out) {
+  using L = typename A::Layout;
   using I = typename L::I;
   const long long key = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (key >= (1LL << (2 * K))) return;
@@ -460,7 +552,7 @@ lut_build_kernel(const uint4* __restrict__ t4, FmParams<typename L::I> p,
   I x0 = p.L2[c] + 1, x1 = p.L2[3 - c] + 1, x2 = p.L2[c + 1] - p.L2[c];
   for (int i = 1; i < K; ++i) {
     const int b = (int)(key >> (2 * (K - 1 - i))) & 3;
-    if (x2 == 0 || !extend<L>(t4, p, 3 - b, x0, x1, x2)) {
+    if (x2 == 0 || !extend(a, p, 3 - b, x0, x1, x2)) {
       x0 = x1 = x2 = 0;
       break;
     }
@@ -481,13 +573,15 @@ lut_build_kernel(const uint4* __restrict__ t4, FmParams<typename L::I> p,
 // are short and cached, and the table gathers still bound the walk; a
 // transposed (L, W) input, as dart_tpu's scan over chars.T has, is the
 // obvious later fix.
-template <class L>
+template <class A>
 __global__ void __launch_bounds__(kThreads)
-mem_walks_kernel(const uint4* __restrict__ t4, FmParams<typename L::I> p,
+mem_walks_kernel(A a, FmParams<typename A::Layout::I> p,
                  const uint8_t* __restrict__ chars,
                  const uint8_t* __restrict__ valid, int W, int Lc,
-                 int* __restrict__ lens, typename L::I* __restrict__ x0o,
-                 typename L::I* __restrict__ x2o) {
+                 int* __restrict__ lens,
+                 typename A::Layout::I* __restrict__ x0o,
+                 typename A::Layout::I* __restrict__ x2o) {
+  using L = typename A::Layout;
   using I = typename L::I;
   const int w = blockIdx.x * blockDim.x + threadIdx.x;
   if (w >= W) return;
@@ -500,7 +594,7 @@ mem_walks_kernel(const uint4* __restrict__ t4, FmParams<typename L::I> p,
     len = 1;
     for (int j = 1; j < Lc; ++j) {
       const int ch = c[j];
-      if (!v[j] || ch > 3 || !extend<L>(t4, p, 3 - ch, x0, x1, x2)) break;
+      if (!v[j] || ch > 3 || !extend(a, p, 3 - ch, x0, x1, x2)) break;
       ++len;
     }
   }
@@ -509,68 +603,78 @@ mem_walks_kernel(const uint4* __restrict__ t4, FmParams<typename L::I> p,
   x2o[w] = x2;
 }
 
-template <class L>
-int launch_seed_scan(const void* table, const typename L::I* params,
+template <class A>
+int launch_seed_scan(A a, const typename A::Layout::I* params,
                      const void* lut, int lut_k, const void* buf, int R,
                      int words, int S, void* out, void* stream) {
   const int grid = (R + kThreads - 1) / kThreads;
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto t4 = static_cast<const uint4*>(table);
   const auto b = static_cast<const uint32_t*>(buf);
-  const auto o = static_cast<typename L::I*>(out);
+  const auto o = static_cast<typename A::Layout::I*>(out);
   if (lut_k > 0)
-    seed_scan_kernel<L, true><<<grid, kThreads, 0, s>>>(
-        t4, make_params(params), lut, lut_k, b, R, words, S, o);
+    seed_scan_kernel<A, true><<<grid, kThreads, 0, s>>>(
+        a, make_params(params), lut, lut_k, b, R, words, S, o);
   else
-    seed_scan_kernel<L, false><<<grid, kThreads, 0, s>>>(
-        t4, make_params(params), nullptr, 0, b, R, words, S, o);
+    seed_scan_kernel<A, false><<<grid, kThreads, 0, s>>>(
+        a, make_params(params), nullptr, 0, b, R, words, S, o);
   return (int)cudaGetLastError();
 }
 
-template <class L>
-int launch_locate(const void* table, const typename L::I* params,
-                  const void* rows, typename L::I n, void* out,
-                  void* stream) {
-  using I = typename L::I;
-  locate_kernel<L><<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
+template <class A>
+int launch_locate(A a, const typename A::Layout::I* params, const void* rows,
+                  typename A::Layout::I n, void* out, void* stream) {
+  using I = typename A::Layout::I;
+  locate_kernel<A><<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(table), make_params(params),
-      static_cast<const I*>(rows), n, static_cast<I*>(out));
+      a, make_params(params), static_cast<const I*>(rows), n,
+      static_cast<I*>(out));
   return (int)cudaGetLastError();
 }
 
-template <class L>
-int launch_lut_build(const void* table, const typename L::I* params, int K,
+template <class A>
+int launch_lut_build(A a, const typename A::Layout::I* params, int K,
                      void* out, void* stream) {
   const long long n = 1LL << (2 * K);
-  lut_build_kernel<L><<<(unsigned)((n + kThreads - 1) / kThreads), kThreads,
+  lut_build_kernel<A><<<(unsigned)((n + kThreads - 1) / kThreads), kThreads,
                         0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(table), make_params(params), K, out);
+      a, make_params(params), K, out);
+  return (int)cudaGetLastError();
+}
+
+template <class A>
+int launch_mem_walks(A a, const typename A::Layout::I* params,
+                     const void* chars, const void* valid, int W, int Lc,
+                     void* lens, void* x0, void* x2, void* stream) {
+  using I = typename A::Layout::I;
+  mem_walks_kernel<A><<<(W + kThreads - 1) / kThreads, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      a, make_params(params), static_cast<const uint8_t*>(chars),
+      static_cast<const uint8_t*>(valid), W, Lc, static_cast<int*>(lens),
+      static_cast<I*>(x0), static_cast<I*>(x2));
   return (int)cudaGetLastError();
 }
 
 template <class L>
-int launch_mem_walks(const void* table, const typename L::I* params,
-                     const void* chars, const void* valid, int W, int Lc,
-                     void* lens, void* x0, void* x2, void* stream) {
-  using I = typename L::I;
-  mem_walks_kernel<L><<<(W + kThreads - 1) / kThreads, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(table), make_params(params),
-      static_cast<const uint8_t*>(chars), static_cast<const uint8_t*>(valid),
-      W, Lc, static_cast<int*>(lens), static_cast<I*>(x0),
-      static_cast<I*>(x2));
-  return (int)cudaGetLastError();
+Flat<L> flat(const void* table) {
+  return {static_cast<const uint4*>(table)};
+}
+
+template <class L>
+Sharded<L> sharded(const void* bases, long long rows) {
+  return {static_cast<const unsigned long long*>(bases), (unsigned)rows};
 }
 
 }  // namespace
+
+// Flat: `table` is the merged table. Sharded: `bases` is the device array
+// of the shards' addresses and `rows` the rows of a shard.
 
 extern "C" int dart_fm_seed_scan(const void* table, const int* params,
                                  const void* lut, int lut_k, const void* buf,
                                  int R, int words, int S, void* out,
                                  void* stream) {
-  return launch_seed_scan<Narrow>(table, params, lut, lut_k, buf, R, words,
-                                  S, out, stream);
+  return launch_seed_scan(flat<Narrow>(table), params, lut, lut_k, buf, R,
+                          words, S, out, stream);
 }
 
 extern "C" int dart_fm_seed_scan_wide(const void* table,
@@ -578,37 +682,112 @@ extern "C" int dart_fm_seed_scan_wide(const void* table,
                                       const void* lut, int lut_k,
                                       const void* buf, int R, int words,
                                       int S, void* out, void* stream) {
-  return launch_seed_scan<Wide>(table, params, lut, lut_k, buf, R, words, S,
-                                out, stream);
+  return launch_seed_scan(flat<Wide>(table), params, lut, lut_k, buf, R,
+                          words, S, out, stream);
 }
 
 extern "C" int dart_fm_locate(const void* table, const int* params,
                               const void* rows, int n, void* out,
                               void* stream) {
-  return launch_locate<Narrow>(table, params, rows, n, out, stream);
+  return launch_locate(flat<Narrow>(table), params, rows, n, out, stream);
 }
 
 extern "C" int dart_fm_locate_wide(const void* table, const long long* params,
                                    const void* rows, long long n, void* out,
                                    void* stream) {
-  return launch_locate<Wide>(table, params, rows, n, out, stream);
+  return launch_locate(flat<Wide>(table), params, rows, n, out, stream);
 }
 
 extern "C" int dart_fm_lut_build(const void* table, const int* params, int K,
                                  void* out, void* stream) {
-  return launch_lut_build<Narrow>(table, params, K, out, stream);
+  return launch_lut_build(flat<Narrow>(table), params, K, out, stream);
 }
 
 extern "C" int dart_fm_lut_build_wide(const void* table,
                                       const long long* params, int K,
                                       void* out, void* stream) {
-  return launch_lut_build<Wide>(table, params, K, out, stream);
+  return launch_lut_build(flat<Wide>(table), params, K, out, stream);
 }
 
 extern "C" int dart_fm_mem_walks(const void* table, const int* params,
                                  const void* chars, const void* valid, int W,
                                  int L, void* lens, void* x0, void* x2,
                                  void* stream) {
-  return launch_mem_walks<Narrow>(table, params, chars, valid, W, L, lens, x0,
-                                  x2, stream);
+  return launch_mem_walks(flat<Narrow>(table), params, chars, valid, W, L,
+                          lens, x0, x2, stream);
+}
+
+extern "C" int dart_fm_seed_scan_sharded(const void* bases, long long rows,
+                                         const int* params, const void* lut,
+                                         int lut_k, const void* buf, int R,
+                                         int words, int S, void* out,
+                                         void* stream) {
+  return launch_seed_scan(sharded<Narrow>(bases, rows), params, lut, lut_k,
+                          buf, R, words, S, out, stream);
+}
+
+extern "C" int dart_fm_seed_scan_wide_sharded(
+    const void* bases, long long rows, const long long* params,
+    const void* lut, int lut_k, const void* buf, int R, int words, int S,
+    void* out, void* stream) {
+  return launch_seed_scan(sharded<Wide>(bases, rows), params, lut, lut_k,
+                          buf, R, words, S, out, stream);
+}
+
+extern "C" int dart_fm_locate_sharded(const void* bases, long long rows,
+                                      const int* params, const void* rows_in,
+                                      int n, void* out, void* stream) {
+  return launch_locate(sharded<Narrow>(bases, rows), params, rows_in, n, out,
+                       stream);
+}
+
+extern "C" int dart_fm_locate_wide_sharded(const void* bases, long long rows,
+                                           const long long* params,
+                                           const void* rows_in, long long n,
+                                           void* out, void* stream) {
+  return launch_locate(sharded<Wide>(bases, rows), params, rows_in, n, out,
+                       stream);
+}
+
+extern "C" int dart_fm_lut_build_sharded(const void* bases, long long rows,
+                                         const int* params, int K, void* out,
+                                         void* stream) {
+  return launch_lut_build(sharded<Narrow>(bases, rows), params, K, out,
+                          stream);
+}
+
+extern "C" int dart_fm_lut_build_wide_sharded(const void* bases,
+                                              long long rows,
+                                              const long long* params, int K,
+                                              void* out, void* stream) {
+  return launch_lut_build(sharded<Wide>(bases, rows), params, K, out, stream);
+}
+
+extern "C" int dart_fm_mem_walks_sharded(const void* bases, long long rows,
+                                         const int* params, const void* chars,
+                                         const void* valid, int W, int L,
+                                         void* lens, void* x0, void* x2,
+                                         void* stream) {
+  return launch_mem_walks(sharded<Narrow>(bases, rows), params, chars, valid,
+                          W, L, lens, x0, x2, stream);
+}
+
+// Let kernels on card `device` read memory on card `peer`. Returns 0, or the
+// CUDA error (cudaErrorPeerAccessUnsupported when the two cannot reach each
+// other). The calling thread's current card is left as it was.
+extern "C" int dart_enable_peer_access(int device, int peer) {
+  int prev = 0, can = 0;
+  cudaGetDevice(&prev);
+  cudaError_t e = cudaDeviceCanAccessPeer(&can, device, peer);
+  if (e == cudaSuccess && !can) e = cudaErrorPeerAccessUnsupported;
+  if (e == cudaSuccess) e = cudaSetDevice(device);
+  if (e == cudaSuccess) {
+    e = cudaDeviceEnablePeerAccess(peer, 0);
+    if (e == cudaErrorPeerAccessAlreadyEnabled) {
+      cudaGetLastError();  // not sticky; clear it
+      e = cudaSuccess;
+    }
+  }
+  cudaSetDevice(prev);
+  return (int)e;
 }

@@ -94,7 +94,8 @@ def build() -> tuple[str, float]:
 def load() -> ctypes.CDLL:
     """The kernel library, built if needed, with its C entries typed.
     The wide entries take their parameter array and their row count as
-    int64: positions and counts there pass 2^31."""
+    int64: positions and counts there pass 2^31. Each ``dart_fm_*``
+    entry has a ``*_sharded`` twin that reads a range-sharded table."""
     lib = ctypes.CDLL(build()[0])
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     ip, lp = ctypes.POINTER(i32), ctypes.POINTER(i64)
@@ -113,8 +114,16 @@ def load() -> ctypes.CDLL:
         "dart_fm_mem_walks": [vp, ip, vp, vp, i32, i32, vp, vp, vp, vp],
         # c1, c2, mn, B, planes, stream
         "dart_nw_planes": [vp, vp, vp, i32, vp, vp],
+        # device, peer
+        "dart_enable_peer_access": [i32, i32],
     }.items():
         fn = getattr(lib, name)
         fn.restype = i32
         fn.argtypes = args
+        if name.startswith("dart_fm_"):
+            # the range-sharded twin: (shard bases, rows a shard) in place
+            # of the table
+            fn = getattr(lib, name + "_sharded")
+            fn.restype = i32
+            fn.argtypes = [vp, i64, *args[1:]]
     return lib

@@ -17,6 +17,13 @@ With ``lut_k`` > 0 it builds the K-mer walk-state table at
 construction, as a tensor of its own beside the merged table, and every
 seed walk starts from it.
 
+Given ``shard_devices`` (the devices of one data group of an
+``index`` mesh axis, ``parallel.mesh``), the merged table is
+range-sharded by row over them (``layout.ShardedTable``, one allocation
+on each) and the kernels run on ``device`` reading every shard: the
+``*_sharded`` kernels, whose launches count under names with that
+suffix. The K-mer table is built once and kept whole on ``device``.
+
 On a CUDA device every scan, locate, table build and MEM walk launches
 the hand-written kernel of ``csrc/fm_kernels.cu`` (or raises); on the
 CPU it runs the plain PyTorch version of ``ops.fm_plain``. The MEM walk
@@ -37,7 +44,7 @@ import torch
 from . import build
 from .fm_plain import (locate_plain, lut_build_plain, mem_walks_plain,
                        seed_scan_plain)
-from .layout import tables_from_index, to_device
+from .layout import ShardedTable, tables_from_index, to_device
 
 # texts of this many positions or more need the wide (int64) engine
 WIDE_MIN_SEQ = 2**31
@@ -50,10 +57,19 @@ class FMIndexTorch:
     _min_bucket = 1
 
     def __init__(self, idx, device="cuda", max_dup_num: int = 100,
-                 lut_k: int = 0, wide: bool | None = None):
+                 lut_k: int = 0, wide: bool | None = None,
+                 shard_devices=None, tables: dict | None = None):
+        """``shard_devices``: two or more devices to range-shard the
+        table over (None: the whole table on ``device``). ``tables``:
+        the host tables of ``layout.tables_from_index`` to upload, made
+        for this layout and shard count (None: built here)."""
         self.device = torch.device(device)
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
+        if self.device.type == "cuda" and self.device.index is None:
+            # the card by number, as the shards' tensors name theirs
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        n_shards = len(shard_devices) if shard_devices else 1
         if not 0 <= lut_k <= MAX_LUT_K:
             raise ValueError(f"lut_k must be in 0..{MAX_LUT_K}, got {lut_k}")
         if wide is None:
@@ -69,15 +85,29 @@ class FMIndexTorch:
         self.n_lut_launches = 0
         self.n_mem_walks_launches = 0
         t0 = time.perf_counter()
-        tabs = tables_from_index(idx, wide=self.wide)
+        tabs = tables if tables is not None else tables_from_index(
+            idx, wide=self.wide, index_shards=n_shards)
+        if tabs["wide"] != self.wide or tabs["index_shards"] != n_shards:
+            raise ValueError("tables of another layout or shard count")
         self.primary = tabs["primary"]
         self.sa_intv = tabs["sa_intv"]
         self.ref_off = tabs["ref_off"]
         self.sad_off = tabs["sad_off"]
         self.seq_len = tabs["seq_len"]
         self.max_dup_num = int(max_dup_num)
-        dev = to_device(tabs, self.device)
+        dev = to_device(tabs, self.device,
+                        shard_devices if n_shards > 1 else None)
         self.table, self.L2 = dev["table"], dev["L2"]
+        self.sharded = isinstance(self.table, ShardedTable)
+        if self.sharded:
+            if self.table.device != self.device:
+                raise ValueError("the first shard lives on the engine's "
+                                 "device")
+            if self.table.shape[0] >= 2**32:
+                raise ValueError("a sharded table has fewer than 2^32 rows")
+            if self.device.type == "cuda":
+                self._enable_peer_access()
+        self._bases, self._bases_of = None, None
         # the kernels' scalar arguments, in csrc's FmParams order: int64
         # for the wide kernels, whose positions pass 2^31
         self._params = np.array(
@@ -97,16 +127,52 @@ class FMIndexTorch:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _enable_peer_access(self) -> None:
+        """Let the kernels on ``device`` read the shards on other cards;
+        raises when a card cannot reach one of them."""
+        lib = build.load()
+        for d in {t.device for t in self.table.shards}:
+            if d != self.device:
+                rc = lib.dart_enable_peer_access(self.device.index, d.index)
+                if rc != 0:
+                    raise RuntimeError(f"{self.device} cannot read {d} "
+                                       f"(peer access: CUDA error {rc})")
+
+    @property
+    def _tab(self) -> tuple:
+        """The kernels' table arguments: the table's address (Flat), or
+        the shards' address array and the rows of a shard (Sharded).
+        Both are read from the table at each launch, so a table that was
+        swapped or moved is never read at its old addresses."""
+        if self.sharded:
+            ptrs = tuple(t.data_ptr() for t in self.table.shards)
+            if ptrs != self._bases_of:
+                # the shards' addresses, in a device array for the kernels;
+                # kernels still reading the old array finish first
+                if self._bases is not None:
+                    self._sync()
+                self._bases = torch.tensor(ptrs, dtype=torch.int64,
+                                           device=self.device)
+                self._bases_of = ptrs
+            return (self._bases.data_ptr(), self.table.rows)
+        return (self.table.data_ptr(),)
+
+    @property
+    def _sfx(self) -> str:
+        return ("_wide" if self.wide else "") + \
+            ("_sharded" if self.sharded else "")
+
     @property
     def launches(self) -> dict:
-        """Launch counts by kernel name (``_wide`` for the wide ones;
-        ``mem_walks`` on the narrow engine only)."""
-        sfx = "_wide" if self.wide else ""
+        """Launch counts by kernel name (``_wide`` for the wide ones,
+        ``_sharded`` for those reading a sharded table; ``mem_walks`` on
+        the narrow engine only)."""
+        sfx = self._sfx
         out = {f"seed_scan{sfx}": self.n_seed_launches,
                f"locate{sfx}": self.n_locate_launches,
                f"lut_build{sfx}": self.n_lut_launches}
         if not self.wide:
-            out["mem_walks"] = self.n_mem_walks_launches
+            out[f"mem_walks{sfx}"] = self.n_mem_walks_launches
         return out
 
     @staticmethod
@@ -130,11 +196,17 @@ class FMIndexTorch:
                              f"on {self.table.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
 
-    @staticmethod
-    def _check_launch(rc: int, name: str) -> None:
-        """Raise on the cudaGetLastError() code a C entry returned."""
+    def _launch(self, name: str, what: str, *args) -> None:
+        """Launch kernel ``name`` (its C entry for this engine's layout
+        and table access) with the table and the scalar parameters
+        before ``args`` and the stream after them, on the engine's card
+        (the current card, which a launch needs, may be another one) and
+        its current stream; raise on the CUDA error the entry returns."""
+        fn = getattr(build.load(), f"dart_fm_{name}{self._sfx}")
+        with torch.cuda.device(self.device):
+            rc = fn(*self._tab, self._params_ptr(), *args, self._stream())
         if rc != 0:
-            raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+            raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
 
     def seed_scan(self, buf: torch.Tensor, words: int, S: int) -> torch.Tensor:
         """Seed tables of the reads in ``buf`` (R, words + words/2 + 1)
@@ -151,14 +223,10 @@ class FMIndexTorch:
         out = torch.empty((R, 1 + 4 * S), dtype=self.idx_dtype,
                           device=self.device)
         if R:
-            lib = build.load()
-            fn = lib.dart_fm_seed_scan_wide if self.wide else \
-                lib.dart_fm_seed_scan
-            rc = fn(self.table.data_ptr(), self._params_ptr(),
-                    self.lut.data_ptr() if self.lut_k else None, self.lut_k,
-                    buf.data_ptr(), R, words, S, out.data_ptr(),
-                    self._stream())
-            self._check_launch(rc, "seed scan")
+            self._launch("seed_scan", "seed scan",
+                         self.lut.data_ptr() if self.lut_k else None,
+                         self.lut_k, buf.data_ptr(), R, words, S,
+                         out.data_ptr())
             self.n_seed_launches += 1
         return out
 
@@ -170,12 +238,8 @@ class FMIndexTorch:
             return self.plain_locate(rows)
         out = torch.empty_like(rows)
         if rows.numel():
-            lib = build.load()
-            fn = lib.dart_fm_locate_wide if self.wide else lib.dart_fm_locate
-            rc = fn(self.table.data_ptr(), self._params_ptr(),
-                    rows.data_ptr(), rows.numel(), out.data_ptr(),
-                    self._stream())
-            self._check_launch(rc, "locate")
+            self._launch("locate", "locate", rows.data_ptr(), rows.numel(),
+                         out.data_ptr())
             self.n_locate_launches += 1
         return out
 
@@ -188,11 +252,7 @@ class FMIndexTorch:
             return self.plain_build_lut()
         shape = (4**K, 3) if self.wide else (4**K, 4)
         out = torch.empty(shape, dtype=self.idx_dtype, device=self.device)
-        lib = build.load()
-        fn = lib.dart_fm_lut_build_wide if self.wide else lib.dart_fm_lut_build
-        rc = fn(self.table.data_ptr(), self._params_ptr(), K,
-                out.data_ptr(), self._stream())
-        self._check_launch(rc, "LUT build")
+        self._launch("lut_build", "LUT build", K, out.data_ptr())
         self.n_lut_launches += 1
         return out
 
@@ -216,11 +276,9 @@ class FMIndexTorch:
         lens, x0, x2 = (torch.empty(W, dtype=torch.int32, device=self.device)
                         for _ in range(3))
         if W:
-            rc = build.load().dart_fm_mem_walks(
-                self.table.data_ptr(), self._params_ptr(), chars.data_ptr(),
-                valid.data_ptr(), W, L, lens.data_ptr(), x0.data_ptr(),
-                x2.data_ptr(), self._stream())
-            self._check_launch(rc, "MEM walk")
+            self._launch("mem_walks", "MEM walk", chars.data_ptr(),
+                         valid.data_ptr(), W, L, lens.data_ptr(),
+                         x0.data_ptr(), x2.data_ptr())
             self.n_mem_walks_launches += 1
         return lens, x0, x2
 
@@ -278,17 +336,20 @@ class FMIndexTorch:
         needed, since the mask always goes with the reads."""
         words = Lp // 16
         S = self.seed_slots(Lp, max_rlen)
-        host = np.concatenate([buf[:nlive, :words], nmask[:nlive],
-                               buf[:nlive, words:words + 1]], axis=1)
-        dev = torch.from_numpy(host.view(np.int32)).to(self.device)
-        return {"out": self.seed_scan(dev, words, S), "S": S}
+        dev = torch.from_numpy(pack_host(buf, nmask, nlive, words))
+        return {"out": self.seed_scan(dev.to(self.device), words, S),
+                "S": S}
 
     def seed_finish(self, job, on_wait=None):
         """Wait for a submitted scan. Returns (n, rpos, len, k0, freq)."""
-        S = job["S"]
         o = job["out"].cpu().numpy()
         if on_wait is not None:
             on_wait()
+        return self.split_seeds(o, job["S"])
+
+    @staticmethod
+    def split_seeds(o: np.ndarray, S: int):
+        """The seed-scan rows (R, 1 + 4S) as (n, rpos, len, k0, freq)."""
         return (o[:, 0].astype(np.int32), o[:, 1:1 + S].astype(np.int32),
                 o[:, 1 + S:1 + 2 * S].astype(np.int32),
                 o[:, 1 + 2 * S:1 + 3 * S].astype(np.int64),
@@ -318,6 +379,15 @@ class FMIndexTorch:
         v = torch.from_numpy(np.ascontiguousarray(valid, dtype=bool))
         out = self.mem_walk_rows(c.to(self.device), v.to(self.device))
         return tuple(t.cpu().numpy().astype(np.int64) for t in out)
+
+
+def pack_host(buf: np.ndarray, nmask: np.ndarray, nlive: int,
+              words: int) -> np.ndarray:
+    """The first nlive reads of the native packer's buffers as the seed
+    scan's input rows, int32: [codes | N bits | rlen]."""
+    return np.concatenate([buf[:nlive, :words], nmask[:nlive],
+                           buf[:nlive, words:words + 1]],
+                          axis=1).view(np.int32)
 
 
 def pack_codes(codes: np.ndarray, rlens: np.ndarray):

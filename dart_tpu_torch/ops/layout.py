@@ -30,6 +30,15 @@ of ``dart_tpu/native/layout.cpp`` (NumPy's broadcasting takes tens of
 minutes past 2^31 elements); the NumPy bodies are their twins, taken
 when the native library does not load.
 
+Range-sharded over ``n`` index devices (``--mesh ...,index=n``), each
+layout gains the zero rows of ``dart_tpu``'s sharded layout, so that
+the row count divides by ``n``: the narrow one at its end
+(``fm_jax.build_merged_table(..., index_shards)``), the wide one at the
+end of its Occ region and at its end
+(``fm_jax_wide.build_merged_table_wide(idx, n_shards)``), which moves
+its ``ref_off`` and ``sad_off``. No kernel reads a padding row.
+``ShardedTable`` holds such a table as one tensor per row range.
+
 Re-implemented here because the JAX modules import ``jax``.
 """
 
@@ -61,9 +70,19 @@ def build_device_layout(idx) -> np.ndarray:
     return np.concatenate([occ_start.astype(np.uint32), words], axis=1)
 
 
-def build_merged_table(idx, blocks: np.ndarray, samples: np.ndarray):
+def _pad_rows(a: np.ndarray, n_shards: int) -> np.ndarray:
+    """``a`` with zero rows appended up to a multiple of n_shards."""
+    r = (-a.shape[0]) % n_shards
+    if r == 0:
+        return a
+    return np.concatenate([a, np.zeros((r,) + a.shape[1:], a.dtype)])
+
+
+def build_merged_table(idx, blocks: np.ndarray, samples: np.ndarray,
+                       index_shards: int = 1):
     """Append the packed genome rows and the SA-sample rows to the Occ
-    rows. Returns (table, ref_off, sad_off)."""
+    rows, and zero rows up to a multiple of ``index_shards``. Returns
+    (table, ref_off, sad_off)."""
     n_blocks = blocks.shape[0]
     seq_len = int(idx.seq_len)
     n_words = (seq_len + 15) // 16
@@ -77,7 +96,8 @@ def build_merged_table(idx, blocks: np.ndarray, samples: np.ndarray):
     sad_rows = sad_rows.view(np.uint32).reshape(n_srows, 8)
     ref_off = n_blocks
     sad_off = n_blocks + n_wrows
-    return np.concatenate([blocks, ref_rows, sad_rows]), ref_off, sad_off
+    table = np.concatenate([blocks, ref_rows, sad_rows])
+    return _pad_rows(table, index_shards), ref_off, sad_off
 
 
 def _pack16(codes: np.ndarray) -> np.ndarray:
@@ -142,10 +162,12 @@ def _pack_ref_rows_wide(idx, n_rrows: int) -> np.ndarray:
     return flat.reshape(n_rrows, 16)
 
 
-def build_merged_table_wide(idx):
-    """The wide Occ rows, genome rows and SA-sample rows in one table.
-    Returns (table (rows, 16) uint32, ref_off, sad_off)."""
-    blocks = build_device_layout_wide(idx)
+def build_merged_table_wide(idx, n_shards: int = 1):
+    """The wide Occ rows, genome rows and SA-sample rows in one table;
+    sharded over n_shards > 1, zero rows pad the Occ region and the
+    whole table to multiples of n_shards. Returns (table (rows, 16)
+    uint32, ref_off, sad_off)."""
+    blocks = _pad_rows(build_device_layout_wide(idx), n_shards)
     n_blocks = blocks.shape[0]
     n_words = (int(idx.seq_len) + 15) // 16
     n_rrows = -(-n_words // 16) + 1  # +1: a window may read row + 1
@@ -159,7 +181,7 @@ def build_merged_table_wide(idx):
                                hi.reshape(n_srows, 8)], axis=1)
     table = np.concatenate([blocks, _pack_ref_rows_wide(idx, n_rrows),
                             sad_rows])
-    return table, n_blocks, n_blocks + n_rrows
+    return _pad_rows(table, n_shards), n_blocks, n_blocks + n_rrows
 
 
 def _split64(v: np.ndarray):
@@ -169,33 +191,75 @@ def _split64(v: np.ndarray):
             (u >> np.uint64(32)).astype(np.uint32))
 
 
-def tables_from_index(idx, wide: bool = False) -> dict:
+def tables_from_index(idx, wide: bool = False, index_shards: int = 1) -> dict:
     """Everything the kernels read, as NumPy arrays and ints: the merged
-    ``table`` ((rows, 8) uint32 narrow, (rows, 16) wide), ``L2`` (5,)
-    (int32 narrow, int64 wide), ``primary``, ``sa_intv`` (the interval
-    of the samples in the table), ``ref_off``, ``sad_off``, ``seq_len``
-    and ``wide``."""
+    ``table`` ((rows, 8) uint32 narrow, (rows, 16) wide; rows a multiple
+    of ``index_shards``), ``L2`` (5,) (int32 narrow, int64 wide),
+    ``primary``, ``sa_intv`` (the interval of the samples in the
+    table), ``ref_off``, ``sad_off``, ``seq_len``, ``wide`` and
+    ``index_shards``."""
     sa_intv = int(idx.sad_intv) if idx.sad_intv else int(idx.sa_intv)
     if wide:
-        table, ref_off, sad_off = build_merged_table_wide(idx)
+        table, ref_off, sad_off = build_merged_table_wide(idx, index_shards)
     else:
         samples = (idx.sad_samples if idx.sad_intv
                    else idx.sa_samples).astype(np.int32)
         table, ref_off, sad_off = build_merged_table(
-            idx, build_device_layout(idx), samples)
+            idx, build_device_layout(idx), samples, index_shards)
     L2 = np.asarray(idx.L2).astype(np.int64 if wide else np.int32)
     return {"table": table, "L2": L2, "primary": int(idx.primary),
             "sa_intv": sa_intv, "ref_off": int(ref_off),
             "sad_off": int(sad_off), "seq_len": int(idx.seq_len),
-            "wide": bool(wide)}
+            "wide": bool(wide), "index_shards": int(index_shards)}
 
 
-def to_device(tables: dict, device) -> dict:
+def to_device(tables: dict, device, shard_devices=None) -> dict:
     """The same dict with ``table`` as an int32 tensor on ``device``
-    (its uint32 words keep their bits) and ``L2`` as a tensor of its
-    own type."""
+    (its uint32 words keep their bits), or, given ``shard_devices``
+    (one per index shard), as a ``ShardedTable`` of one allocation on
+    each; and ``L2`` as a tensor of its own type on ``device``."""
     out = dict(tables)
-    out["table"] = torch.from_numpy(
-        np.ascontiguousarray(tables["table"]).view(np.int32)).to(device)
+    words = np.ascontiguousarray(tables["table"]).view(np.int32)
+    if shard_devices is None:
+        out["table"] = torch.from_numpy(words).to(device)
+    else:
+        rows = words.shape[0] // len(shard_devices)
+        out["table"] = ShardedTable([
+            torch.from_numpy(words[s * rows:(s + 1) * rows]).to(d, copy=True)
+            for s, d in enumerate(shard_devices)])
     out["L2"] = torch.from_numpy(tables["L2"]).to(device)
     return out
+
+
+class ShardedTable:
+    """A merged table range-sharded by row: ``shards[s]`` holds rows
+    [s * rows, (s + 1) * rows), each a tensor of its own, on any device.
+    Indexing with a 1-d tensor of row numbers gathers from each shard
+    the rows that fall in it, on that shard's device, and returns them
+    on the device of the row numbers, in their order; the shards are
+    never put back together. ``shape`` and ``device`` (the first
+    shard's) are what the plain versions of ``ops.fm_plain`` read."""
+
+    def __init__(self, shards):
+        self.shards = list(shards)
+        self.rows = self.shards[0].shape[0]
+        if any(t.shape != self.shards[0].shape for t in self.shards):
+            raise ValueError("the shards of a table have one shape")
+        self.shape = (self.rows * len(self.shards), self.shards[0].shape[1])
+        self.device = self.shards[0].device
+        self.dtype = self.shards[0].dtype
+
+    def __getitem__(self, rows: torch.Tensor) -> torch.Tensor:
+        rows = rows.long()
+        if rows.numel() and not bool(((rows >= 0)
+                                      & (rows < self.shape[0])).all()):
+            raise IndexError(f"a row outside the table's {self.shape[0]}")
+        sid = torch.div(rows, self.rows, rounding_mode="floor")
+        out = torch.empty((rows.shape[0], self.shape[1]), dtype=self.dtype,
+                          device=rows.device)
+        for s, shard in enumerate(self.shards):
+            sel = (sid == s).nonzero().squeeze(1)
+            if sel.numel():
+                local = (rows[sel] - s * self.rows).to(shard.device)
+                out[sel] = shard[local].to(rows.device)
+        return out

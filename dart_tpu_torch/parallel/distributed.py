@@ -1,0 +1,269 @@
+"""Multi-host runs over ``torch.distributed``: the port of
+``dart_tpu.parallel.distributed.run_distributed``.
+
+Each process owns a shard of the input (``dart_tpu``'s JAX-free
+readers: record-aligned byte ranges of a plain single-end file,
+round-robin chunks of gzip, split or interleaved paired input), aligns
+it on its own engine (``aligner.make_engine`` on its device: ``cuda``
+is card ``pid`` mod the card count), and writes its own SAM shard with
+an index of its chunk offsets, and, with ``--checkpoint``, a resume
+cursor beside it. Then the junction tables and the four counters are
+gathered from every process, and process 0 merges the shards into the
+output in single-process order (SAM, or BAM encoded from the merge) and
+writes the merged junction table.
+
+The gathers move host integers only, so the process group is ``gloo``
+over TCP (``tcp://{coordinator}``), which needs no card; int64 travels
+as int64. Every collective waits at most ``TIMEOUT_S``, so a process
+that died cannot hang its peers forever.
+"""
+
+from __future__ import annotations
+
+import datetime
+import json
+import os
+
+import torch
+import torch.distributed as dist
+
+from dart_tpu.parallel.distributed import _StridedReader, make_shard_reader
+
+TIMEOUT_S = 600  # bound on every collective: the slowest shard's lag
+
+
+def rank_device(device, pid: int) -> torch.device:
+    """The device of process ``pid``: ``cuda`` is card pid mod the card
+    count; any other device (``cuda:N``, ``cpu``) as given."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None and torch.cuda.is_available():
+        return torch.device("cuda", pid % torch.cuda.device_count())
+    return dev
+
+
+def _allgather(t: torch.Tensor) -> list[torch.Tensor]:
+    out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(out, t)
+    return out
+
+
+def _allgather_sj(sj_items: list) -> dict:
+    """Merge the processes' junction tables: gather each table, padded
+    to the longest, and add the counts of equal junctions, process by
+    process in rank order."""
+    arr = torch.tensor(sj_items, dtype=torch.int64).reshape(-1, 4)
+    ns = [int(n) for n in _allgather(torch.tensor([arr.shape[0]]))]
+    merged: dict = {}
+    if max(ns) == 0:
+        return merged
+    pad = torch.zeros((max(ns), 4), dtype=torch.int64)
+    pad[:arr.shape[0]] = arr
+    for n, tab in zip(ns, _allgather(pad)):
+        for g1, g2, t, c in tab[:n].tolist():
+            if (g1, g2) in merged:
+                merged[(g1, g2)][1] += c
+            else:
+                merged[(g1, g2)] = [t, c]
+    return merged
+
+
+def run_distributed(cfg, coordinator: str, nprocs: int, pid: int,
+                    device="cuda") -> int:
+    """Entry point of one process of a multi-host run."""
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{coordinator}", world_size=nprocs,
+        rank=pid, timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    try:
+        if dist.get_world_size() != nprocs:
+            raise RuntimeError(f"torch.distributed formed "
+                               f"{dist.get_world_size()} processes, "
+                               f"expected {nprocs}")
+        _run(cfg, nprocs, pid, rank_device(device, pid))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _run(cfg, nprocs: int, pid: int, device) -> None:
+    from dart_tpu.aligner import DartAligner
+    from dart_tpu.index import load_index
+    from dart_tpu.pipeline.junctions import write_sj_table
+
+    from ..aligner import make_engine
+
+    idx = load_index(cfg.index_prefix)
+    aligner = DartAligner(idx, cfg, engine=make_engine(idx, cfg, device))
+
+    shard_sam = f"{cfg.output_file}.shard{pid:04d}"
+    files2 = (cfg.read_files_2 if cfg.read_files_2
+              else [None] * len(cfg.read_files_1))
+    # per file: the chunks' byte offsets in this shard, so that the merge
+    # can put strided chunks and file sections back in input order
+    shard_meta = {"files": []}
+
+    # this process's checkpoint: input cursor, shard offsets, junctions
+    # and counters so far
+    ckpt_path = shard_sam + ".ckpt"
+    resume = None
+    if cfg.checkpoint and os.path.exists(ckpt_path) \
+            and os.path.exists(shard_sam):
+        with open(ckpt_path) as f:
+            st = json.load(f)
+        if (st.get("batch_reads") == cfg.batch_reads
+                and st.get("nprocs") == nprocs):
+            resume = st
+            aligner.counters.update(resume["counters"])
+            for g1, g2, t, cnt in resume["sj"]:
+                aligner.sj_map[(g1, g2)] = [t, cnt]
+            with open(shard_sam, "r+") as f:
+                f.truncate(resume["bytes"])
+            shard_meta["files"] = resume["files_done"]
+
+    with open(shard_sam, "a" if resume else "w") as out:
+        state = {"fi": 0, "chunks": 0}
+
+        def emit(sam):
+            out.write(sam.decode("latin-1") if isinstance(sam, bytes)
+                      else "\n".join(sam) + ("\n" if sam else ""))
+            offs.append(out.tell())
+            state["chunks"] += 1
+            if cfg.checkpoint:
+                out.flush()
+                tmp = ckpt_path + ".tmp"
+                with open(tmp, "w") as f:
+                    json.dump({
+                        "batch_reads": cfg.batch_reads, "nprocs": nprocs,
+                        "file_idx": state["fi"], "chunks": state["chunks"],
+                        "bytes": out.tell(), "offs": offs,
+                        "files_done": shard_meta["files"],
+                        "counters": aligner.counters,
+                        "sj": [[g1, g2, v[0], v[1]] for (g1, g2), v in
+                               sorted(aligner._merged_sj().items())]}, f)
+                os.replace(tmp, ckpt_path)
+                crash_after = int(os.environ.get(
+                    "DART_TPU_TEST_CRASH_AFTER_CHUNKS", "0"))
+                if crash_after and state["chunks"] >= crash_after:
+                    # test hook: a process failing after N chunks
+                    raise RuntimeError("injected distributed crash")
+
+        for fi, (path1, path2) in enumerate(zip(cfg.read_files_1, files2)):
+            if resume is not None and fi < resume["file_idx"]:
+                continue
+            reader = make_shard_reader(path1, path2, cfg.pair_end,
+                                       cfg.batch_reads, nprocs, pid)
+            state["fi"], state["chunks"] = fi, 0
+            offs = [out.tell()]
+            if resume is not None and fi == resume["file_idx"]:
+                for _ in range(resume["chunks"]):
+                    reader.next_chunk()  # deterministic fast-forward
+                state["chunks"] = resume["chunks"]
+                offs = resume["offs"]
+                resume = None
+            if aligner.native is not None:
+                fst = {"file_idx": fi, "reader": reader, "chunks": 0,
+                       "kind": type(reader).__name__,
+                       "pair_end": reader.pair_end, "fastq": reader.fastq}
+                aligner._run_stream_pipelined(iter([fst]),
+                                              lambda sam, _f: emit(sam))
+            else:
+                while True:
+                    reads = reader.next_chunk()
+                    if not reads:
+                        break
+                    emit(aligner.process_chunk(reads, reader.pair_end,
+                                               reader.fastq))
+            reader.close()
+            shard_meta["files"].append(
+                {"strided": isinstance(reader, _StridedReader),
+                 "offsets": offs})
+
+    with open(shard_sam + ".idx", "w") as f:
+        json.dump(shard_meta, f)
+    if cfg.checkpoint and os.path.exists(ckpt_path):
+        os.remove(ckpt_path)
+
+    # ---- the merge ----
+    merged_sj = _allgather_sj([(g1, g2, v[0], v[1]) for (g1, g2), v in
+                               sorted(aligner._merged_sj().items())])
+    c = aligner.counters
+    totals = torch.tensor([c["total"], c["unique"], c["unmapped"],
+                           c["paired"]], dtype=torch.int64)
+    dist.all_reduce(totals)
+    if pid != 0:
+        return
+    aligner.sj_map = merged_sj
+    aligner.native = None  # the totals come from the merged map below
+    c["total"], c["unique"], c["unmapped"], c["paired"] = totals.tolist()
+    _merge_shards(cfg, aligner, nprocs)
+    aligner.print_summary(write_sj_table(idx, merged_sj, cfg.sj_file))
+
+
+def _merge_shards(cfg, aligner, nprocs: int) -> None:
+    """Process 0: the shards, in single-process order, into the output.
+    A missing shard or index (no shared file system?) raises rather than
+    reordering or dropping records."""
+    shards, missing = [], []
+    for pid in range(nprocs):
+        shard = f"{cfg.output_file}.shard{pid:04d}"
+        if not (os.path.exists(shard) and os.path.exists(shard + ".idx")):
+            missing.append(shard)
+            continue
+        with open(shard + ".idx") as f:
+            shards.append((open(shard, "rb"), json.load(f)))
+    if missing:
+        raise RuntimeError(
+            "cannot merge output shards: missing shard files or .idx "
+            "metadata on process 0 (no shared filesystem?): "
+            + ", ".join(missing))
+
+    def pieces():
+        """Shard byte ranges in single-process order: file sections in
+        input order; a strided file's chunk j from shard j % n at local
+        index j // n; a byte-range file's shards in order."""
+        n_files = max((len(m["files"]) for _, m in shards), default=0)
+        for fi in range(n_files):
+            if any(m["files"][fi]["strided"] for _, m in shards):
+                j = 0
+                while True:
+                    fh, m = shards[j % len(shards)]
+                    offs = m["files"][fi]["offsets"]
+                    k = j // len(shards)
+                    if k + 1 >= len(offs):
+                        break  # the first missing chunk ends the file
+                    yield fh, offs[k], offs[k + 1]
+                    j += 1
+            else:
+                for fh, m in shards:
+                    offs = m["files"][fi]["offsets"]
+                    yield fh, offs[0], offs[-1]
+
+    try:
+        if cfg.output_format == 1:
+            from dart_tpu.io.bam import BamWriter
+
+            writer = BamWriter(cfg.output_file, threads=cfg.threads,
+                               level=cfg.bam_level)
+            writer.write_header(aligner.header_lines())
+            for fh, lo, hi in pieces():
+                fh.seek(lo)
+                for line in fh.read(hi - lo).decode("latin-1").splitlines():
+                    if line:
+                        writer.write_record(line)
+            writer.close()
+        else:
+            with open(cfg.output_file, "wb") as final:
+                for line in aligner.header_lines():
+                    final.write(line.encode() + b"\n")
+                for fh, lo, hi in pieces():
+                    fh.seek(lo)
+                    left = hi - lo
+                    while left > 0:
+                        buf = fh.read(min(left, 1 << 20))
+                        if not buf:
+                            break
+                        final.write(buf)
+                        left -= len(buf)
+    finally:
+        for fh, _ in shards:
+            fh.close()

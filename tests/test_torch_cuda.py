@@ -1,7 +1,9 @@
 """The CUDA kernels of dart_tpu_torch on the card, held exactly against
 their plain PyTorch versions on the same device tensors (narrow and
-wide, with and without the K-mer table; the MEM walk; the gap DP), and
-a golden config aligned on the card. Marked ``cuda``: they skip without a CUDA device. On a
+wide, with and without the K-mer table; the MEM walk; the gap DP; and
+each of them again through the range-sharded table access of
+``--mesh ...,index=N``), and a golden config aligned on the card, on
+one engine and on a device grid. Marked ``cuda``: they skip without a CUDA device. On a
 machine with one: ``pytest -m cuda tests/test_torch_cuda.py``.
 """
 
@@ -18,6 +20,7 @@ from dart_tpu.config import DartConfig
 from dart_tpu.ops.nw_numpy import nw_align
 from dart_tpu_torch.ops import nw_torch
 from dart_tpu_torch.ops.fm_torch import FMIndexTorch, pack_codes
+from dart_tpu_torch.ops.layout import ShardedTable
 from dart_tpu_torch.ops.nw_plain import nw_plain
 
 pytestmark = pytest.mark.cuda
@@ -116,15 +119,22 @@ def test_seed_scan_kernels_equal_plain(which, gpu_engines, gpu_engine,
 
 def shift_samples(eng, delta: int) -> FMIndexTorch:
     """A shallow copy of ``eng`` whose table's SA samples are all
-    ``delta`` larger ([lo x8 | hi x8] rows from sad_off on)."""
+    ``delta`` larger ([lo x8 | hi x8] rows from sad_off on), sharded as
+    ``eng``'s is."""
     out = copy.copy(eng)
-    tab = eng.table.cpu().clone()
+    tab = (torch.cat([t.cpu() for t in eng.table.shards]) if eng.sharded
+           else eng.table.cpu().clone())
     s = tab[eng.sad_off:].numpy().view(np.uint32)
     v = (s[:, :8].astype(np.uint64) | (s[:, 8:].astype(np.uint64) << 32))
     v += np.uint64(delta)
     s[:, :8] = (v & 0xFFFFFFFF).astype(np.uint32)
     s[:, 8:] = (v >> np.uint64(32)).astype(np.uint32)
-    out.table = tab.to(eng.table.device)
+    if eng.sharded:
+        n = eng.table.rows
+        out.table = ShardedTable([tab[i * n:(i + 1) * n].to(t.device)
+                                  for i, t in enumerate(eng.table.shards)])
+    else:
+        out.table = tab.to(eng.table.device)
     return out
 
 
@@ -181,3 +191,113 @@ def test_nw_kernel_equals_plain(gpu_engine):
     assert nw_torch.launches["nw"] == n0 + 1
     assert nw_torch.nw_align_batch(pairs, "cuda") == \
         [nw_align(s1, s2) for s1, s2 in pairs]
+
+
+# ---- the Sharded table access (--mesh ...,index=N) ----
+
+
+def sharded_engine(idx, n: int, **kw) -> FMIndexTorch:
+    """An engine whose table is range-sharded over n slots of the card
+    (separate allocations), read by the ``*_sharded`` kernels."""
+    eng = FMIndexTorch(idx, "cuda", shard_devices=["cuda"] * n, **kw)
+    assert eng.sharded and len(eng.table.shards) == n
+    return eng
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("n", [2, 3])
+def test_sharded_locate_kernels_equal_plain(n, wide, gpu_engine, toy_index):
+    """K2 / K5 through the sharded access, on every toy row: equal to
+    the plain version over the same ``ShardedTable`` and to the flat
+    kernel."""
+    eng = sharded_engine(toy_index, n, wide=wide)
+    dt = torch.int64 if wide else torch.int32
+    rows = torch.arange(toy_index.seq_len, dtype=dt, device="cuda")
+    got = eng.locate_rows(rows)
+    torch.testing.assert_close(got, eng.plain_locate(rows), rtol=0, atol=0)
+    flat = FMIndexTorch(toy_index, "cuda", wide=wide)
+    torch.testing.assert_close(got, flat.locate_rows(rows), rtol=0, atol=0)
+    sfx = "_wide" if wide else ""
+    assert eng.launches[f"locate{sfx}_sharded"] == 1
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_sharded_seed_scan_and_lut_kernels_equal_plain(wide, gpu_engine,
+                                                       toy_index):
+    """K1 / K4 with the K = 11 table and K3 / K6 through the sharded
+    access at index=3 (boundaries in the Occ and genome rows): equal to
+    the plain versions and to the flat kernels."""
+    eng = sharded_engine(toy_index, 3, lut_k=11, wide=wide)
+    flat = FMIndexTorch(toy_index, "cuda", lut_k=11, wide=wide)
+    torch.testing.assert_close(eng.lut, eng.plain_build_lut(), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(eng.lut, flat.lut, rtol=0, atol=0)
+    t, words, S = _packed_reads(toy_index)
+    got = eng.seed_scan(t, words, S)
+    torch.testing.assert_close(got, eng.plain_seed_scan(t, words, S),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(got, flat.seed_scan(t, words, S), rtol=0,
+                               atol=0)
+    sfx = "_wide" if wide else ""
+    assert eng.launches == {f"seed_scan{sfx}_sharded": 1,
+                            f"locate{sfx}_sharded": 0,
+                            f"lut_build{sfx}_sharded": 1,
+                            **({} if wide else {"mem_walks_sharded": 0})}
+
+
+def test_sharded_mem_walks_kernel_equals_plain(gpu_engine, toy_index):
+    """K8 through the sharded access at index=2, on a 64-base task from
+    every genome position."""
+    eng = sharded_engine(toy_index, 2)
+    G, L = toy_index.genome_size, 64
+    codes = np.concatenate([toy_index.ref_codes[:G], np.full(L, 4, np.uint8)])
+    chars = torch.from_numpy(
+        np.lib.stride_tricks.sliding_window_view(codes, L)[:G].copy()).cuda()
+    valid = torch.from_numpy(
+        np.arange(L)[None, :] < (G - np.arange(G))[:, None]).cuda()
+    got = eng.mem_walk_rows(chars, valid)
+    for g, p, f in zip(got, eng.plain_mem_walks(chars, valid),
+                       gpu_engine.mem_walk_rows(chars, valid)):
+        torch.testing.assert_close(g, p, rtol=0, atol=0)
+        torch.testing.assert_close(g, f, rtol=0, atol=0)
+    assert eng.launches["mem_walks_sharded"] == 1
+
+
+def test_sharded_locate_kernel_reads_a_swapped_table(gpu_engine, toy_index):
+    """K5 through the sharded access at index=3, launched once, then on
+    a copy of the table with 2^33 added to every SA sample: the copy's
+    launch reads the copy's shards (every position shifted by exactly
+    2^33), and the first engine still reads its own."""
+    eng = sharded_engine(toy_index, 3, wide=True)
+    rows = torch.arange(toy_index.seq_len, dtype=torch.int64, device="cuda")
+    base = eng.locate_rows(rows)
+    shifted = shift_samples(eng, 2**33)
+    got = shifted.locate_rows(rows)
+    torch.testing.assert_close(got, base + 2**33, rtol=0, atol=0)
+    torch.testing.assert_close(got, shifted.plain_locate(rows), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(eng.locate_rows(rows), base, rtol=0, atol=0)
+
+
+def test_golden_on_card_mesh(gpu_engine, toy_index, data_dir, golden_dir,
+                             tmp_path):
+    """A golden config through the (data=2, index=2) grid on the card,
+    both data groups launching the sharded kernels."""
+    from dart_tpu_torch.parallel.mesh import ShardedFMIndexTorch, make_mesh
+
+    cfg = DartConfig()
+    cfg.read_files_1 = [str(data_dir / "spliced_mm.fq")]
+    cfg.max_mismatch = 5
+    cfg.find_all_junction = True
+    cfg.sj_file = str(tmp_path / "o.tab")
+    cfg.output_file = str(tmp_path / "o.sam")
+    cfg.silent = True
+    engine = ShardedFMIndexTorch(toy_index, make_mesh(4, 2, "cuda"),
+                                 lut_k=11)
+    out = io.StringIO()
+    DartAligner(toy_index, cfg, engine=engine).run(out_stream=out)
+    assert out.getvalue() == (golden_dir / "c4_spliced_mm.sam").read_text()
+    assert (tmp_path / "o.tab").read_text() == \
+        (golden_dir / "c4_spliced_mm.junctions.tab").read_text()
+    assert all(s["seed_scan_sharded"] >= 1 and s["lut_build_sharded"] == 1
+               for s in engine.slot_launches)
