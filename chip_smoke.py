@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``dart_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py            # one card: phases 1-12 below
+    python3 chip_smoke.py            # one card: phases 1-14 below
     python3 chip_smoke.py --cards    # two cards or more: phase_cards only
 
 Needs one CUDA card, ``nvcc`` and a C++ compiler; imports no JAX. From
@@ -16,7 +16,11 @@ the root of a checkout it:
    index; the seed scans (narrow with and without the K = 11 K-mer
    table, wide with it) on 4096 reads of the 8 Mbp set with mismatches,
    N bases and reads shorter than 14 mixed in, the narrow scan with the
-   table also against the one without; the narrow K-mer table build,
+   table also against the one without; all four seed scans (narrow and
+   wide, with and without the table) on repeat reads (the telomeric
+   repeat, with a mismatch in its last base, with an N; tandem repeats;
+   a repeat into unique sequence) at max_dup 0, 1 and 100, against the
+   plain scan run on the CPU; the narrow K-mer table build,
    whole; then times every kernel and its plain version at the main
    path's shapes (65536 reads of 128 padded bases; 65536 rows; one
    K = 11 table);
@@ -30,7 +34,7 @@ the root of a checkout it:
    card with the narrow and with the wide engine, prints wall time,
    reads/s, set-up seconds and the kernels' launch counts, requires the
    two SAMs equal and the first 5,000 reads' SAM and junction table of
-   each engine equal to the NumPy engine's of ``dart_tpu``;
+   each engine equal to the port's CPU path's (its plain versions);
 5. on the 50 Mbp index (``50mbp_se``: a 30 + 20 Mbp genome, same read
    mix; its 125 MB narrow table is past the 50 MB L2) holds the wide
    K-mer table build against its plain version, whole, and times every
@@ -39,10 +43,10 @@ the root of a checkout it:
    engine (K-mer table on) and requires the whole SAM and junction
    table byte-equal between the two;
 7. ``[nw]``, the gap DP (K7): runs the first 2,000 reads of ``8mbp_se``
-   through ``dart_tpu``'s Python pipeline (``cfg.native = False``) on
-   the port's engine, recording every fragment pair it hands its host
-   DP, and requires SAM and junction table equal to the same pipeline
-   on ``dart_tpu``'s NumPy engine; holds the kernel's planes equal to
+   through the port's Python pipeline (``cfg.native = False``) on the
+   card's engine, recording every fragment pair it hands its host DP,
+   and requires SAM, junction table and pairs equal to the same pipeline
+   on the CPU path; holds the kernel's planes equal to
    ``nw_plain``'s on the recorded pairs and on a fuzz set (0-127 bases a
    side, 127 x 127, N, lower case); runs the recorded pairs through
    ``nw_align_batch`` on the card (its path) and requires the strings of
@@ -85,7 +89,20 @@ the root of a checkout it:
     merged outputs byte-equal to the goldens and to a one-process run;
 12. ``[profile]``: one ``--profile`` run of ``8mbp_se``, whose
     ``torch.profiler`` trace must name the seed-scan kernel; prints the
-    kernels' summed time and the card's idle share of the traced window.
+    kernels' summed time, the seed scans' share of it and the card's
+    idle share of the traced window;
+13. ``[diagnosis]``, what bounds the seed scan (``phase_diagnosis``):
+    ``-Xptxas -v`` of every kernel, the latency of one dependent load in
+    and past the L2, the seed scan's time against the reads of a launch,
+    and the dependent loads a read makes (the plain version counts
+    them), with the critical-path floor they give;
+14. ``[redesign]``, only where ``chip_smoke_work/parent/fm_kernels.cu``
+    holds an earlier seed scan, put there for a measurement call: that
+    one against this tree's, in turns (``phase_redesign``).
+
+The data sets are generated in ``bench.py``'s steps with the port's own
+index builder; nothing of JAX or of the JAX package ``dart_tpu`` is
+imported, and an attempt to is refused.
 
 Every engine of a main-path run (phases 4, 6 and the grid runs of 9) is
 made inside that run, so its launch counts start at 0 there; the checks
@@ -97,7 +114,11 @@ path (phase 4 for K1-K6, phases 7 and 8 for the gap DP and the MEM
 walk, phase 9's ``data=2,index=2`` runs for the ``*_sharded`` kernels
 but the MEM walk's, which is the dry run's), its largest difference
 from the plain version, and both times (at the 8 Mbp index for the FM
-kernels, at index=2 for the sharded ones). The last line is ``{"ok":
+kernels, at index=2 for the sharded ones), its bound (the bytes it
+must move at the card's memory rate: inputs once, outputs once, and the
+table rows and K-mer entries this run's data reads, once each) and its
+library call (none: no one PyTorch call computes any of these
+functions). The last line is ``{"ok":
 true, "device": {...}}``; it is printed only when every phase passed,
 and the exit code is 0 only then.
 """
@@ -114,7 +135,10 @@ import sys
 import time
 import traceback
 
-sys.modules["jax"] = None  # any attempt to import JAX fails loudly
+# any attempt to import JAX, or the JAX package, fails loudly: the port
+# stands alone
+sys.modules["jax"] = None
+sys.modules["dart_tpu"] = None
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(HERE, "chip_smoke_work")
@@ -144,6 +168,7 @@ GOLDEN = {  # tests/test_parity.py's nine configs, as CLI flags
     "c9_unique": ["-f", "se_mm.fq", "-unique", "-mis", "5"],
 }
 MAIN_R, MAIN_LP = 65536, 128  # the main path's seed-scan shape
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (published peak)
 LUT_K = 11  # the K-mer table's K on a card (dart_tpu_torch.aligner)
 N_PARITY = 5000
 N_NW_READS = 2000  # reads through the Python pipeline in phase 7
@@ -160,24 +185,78 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bench_env() -> None:
-    os.environ["DART_TPU_BENCH_DIR"] = WORK
+def make_dataset(name: str = "8mbp_se"):
+    """bench.py's genome, reads and index of config ``name`` under WORK,
+    made in the steps of ``bench.ensure_dataset`` (its ``CONFIGS``,
+    ``SEED`` and ``READ_LEN``, ``tools/make_fixtures.py``'s generators)
+    with the port's own index builder. Files that exist are kept.
+    Returns {"fq": (reads, None), "prefix", "dir"}."""
+    import random
+
     if HERE not in sys.path:
         sys.path.insert(0, HERE)
+    import bench  # its CONFIGS and seeds; importing it runs nothing
+
+    import make_fixtures as mf  # on sys.path through bench
+
+    from dart_tpu_torch.index import build_index
+
+    spec = bench.CONFIGS[name]
+    d = os.path.join(WORK, name)
+    fa = os.path.join(d, "genome.fa")
+    prefix = os.path.join(d, "idx")
+    n = spec["n_reads"]
+    fq = os.path.join(d, f"reads_{n}.fq")
+    os.makedirs(d, exist_ok=True)
+    if not os.path.exists(fa):
+        rng = random.Random(bench.SEED)
+        genome = mf.make_genome(rng, spec["genome"], n_runs=4)
+        n_genes = max(50, sum(spec["genome"].values()) // 50000)
+        genome["chr1"], genes = mf.plant_genes(rng, genome["chr1"],
+                                               n_genes=n_genes)
+        with open(os.path.join(d, "genes.txt"), "w") as f:
+            for exs in genes:
+                f.write("chr1\t" + ",".join(f"{a}-{b}" for a, b in exs)
+                        + "\n")
+        mf.write_fasta(fa + ".tmp", sorted(genome.items()))
+        os.replace(fa + ".tmp", fa)
+    if not os.path.exists(fq):
+        rng = random.Random(bench.SEED + 1)
+        genome = read_genome(fa)
+        with open(os.path.join(d, "genes.txt")) as f:
+            genes = [[tuple(map(int, p.split("-"))) for p in
+                      line.split("\t")[1].split(",")] for line in f]
+        n_spliced = n * 3 // 10
+        reads = mf.sim_reads_genomic(rng, genome, n - n_spliced,
+                                     bench.READ_LEN, 0.005, tag="g")
+        reads += mf.sim_reads_spliced(rng, "chr1", genome["chr1"], genes,
+                                      n_spliced, bench.READ_LEN, 0.005,
+                                      tag="s")
+        rng.shuffle(reads)
+        mf.write_reads_fastq(fq + ".tmp", reads)
+        os.replace(fq + ".tmp", fq)
+    if not os.path.exists(prefix + ".bwt"):
+        build_index(fa, prefix)
+    return {"fq": (fq, None), "prefix": prefix, "dir": d}
 
 
-def make_dataset(name: str = "8mbp_se"):
-    """bench.py's genome, reads and index of config ``name``
-    (bench.ensure_dataset, its seed and generators) under WORK."""
-    bench_env()
-    import bench
-
-    return bench.ensure_dataset(name, bench.CONFIGS[name])
+def read_genome(fa: str) -> dict:
+    """A FASTA file's sequences by name (bench.py's ``_read_genome``)."""
+    genome, name, parts = {}, None, []
+    with open(fa) as f:
+        for line in f:
+            if line.startswith(">"):
+                if name:
+                    genome[name] = "".join(parts)
+                name, parts = line[1:].split()[0].strip(), []
+            else:
+                parts.append(line.strip())
+    genome[name] = "".join(parts)
+    return genome
 
 
 def start_dataset(name: str) -> subprocess.Popen:
     """make_dataset(name) in a child process, to overlap with the card."""
-    bench_env()
     return subprocess.Popen(
         [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
          " import chip_smoke; chip_smoke.make_dataset(sys.argv[2])",
@@ -197,7 +276,7 @@ def read_fastq(path: str, n: int):
     """The first n records' sequences as a (n, L) code matrix + rlens."""
     import numpy as np
 
-    from dart_tpu.constants import NT4_TABLE
+    from dart_tpu_torch.constants import NT4_TABLE
 
     seqs = []
     with open(path, "rb") as f:
@@ -281,6 +360,55 @@ def without_lut(eng):
     return out
 
 
+class Touched:
+    """A table (tensor or ``ShardedTable``) that records which of its rows
+    the plain versions gather: ``seen`` marks each row read."""
+
+    def __init__(self, t):
+        self.t = t
+        self.shape, self.device, self.dtype = t.shape, t.device, t.dtype
+        import torch
+
+        self.seen = torch.zeros(t.shape[0], dtype=torch.bool,
+                                device=t.device)
+
+    def __getitem__(self, rows):
+        self.seen[rows.to(self.seen.device)] = True
+        return self.t[rows]
+
+
+def bytes_bound(nbytes: int) -> dict:
+    """The least time to move nbytes at the card's memory rate (H100 SXM,
+    3.35 TB/s, NVIDIA's data sheet). The FM kernels' work is integer
+    popcounts and compares, for which the data sheet gives no peak rate
+    (its integer rate is the tensor cores' int8), so their bound is the
+    bytes'."""
+    return {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bound_bytes": int(nbytes), "library_ms": None}
+
+
+def touched_bytes(eng, run) -> int:
+    """The bytes of the distinct table rows and K-mer table entries that
+    ``run(view)`` reads through the plain versions of ``view``, a copy
+    of ``eng`` whose tables record the rows they hand out."""
+    view = copy.copy(eng)
+    view.table = Touched(eng.table)
+    view.lut = Touched(eng.lut) if eng.lut is not None else None
+    run(view)
+    n = int(view.table.seen.sum()) * eng.table.shape[1] * 4
+    if view.lut is not None:
+        n += int(view.lut.seen.sum()) * (24 if eng.wide else 16)
+    return n
+
+
+def scan_bound(eng, t, words: int, S: int) -> dict:
+    """K1/K4's bound on these reads: the reads in, the seed tables out,
+    and the table rows and K-mer entries the scan reads, once each."""
+    out = t.shape[0] * (1 + 4 * S) * (8 if eng.wide else 4)
+    return bytes_bound(t.numel() * 4 + out + touched_bytes(
+        eng, lambda v: v.plain_seed_scan(t, words, S)))
+
+
 def phase_kernels(toy, big, ds, device: str, n_scan: int, n_rows: int,
                   main_r: int, seed: int) -> dict:
     """Kernel vs plain on the card, exact, narrow and wide; then every
@@ -350,6 +478,10 @@ def phase_kernels(toy, big, ds, device: str, n_scan: int, n_rows: int,
         f"{int((plain_nolut[:, 1 + 3 * S:] == -1).sum())} by "
         "locate-and-compare); all three scans give the same seeds")
 
+    err = check_repeats(device)
+    note("seed_scan", err)
+    note("seed_scan_wide", err)
+
     if device == "cuda":
         times = main_shape_times(engs, codes[:main_r], rlens[:main_r], rng,
                                  device, "8 Mbp")
@@ -357,6 +489,78 @@ def phase_kernels(toy, big, ds, device: str, n_scan: int, n_rows: int,
             note(k, v.pop("max_abs_err"))
             res[k].update(v)
     return res
+
+
+def repeat_set(device: str, L: int = 64):
+    """A 24 kbp genome, the telomeric repeat then unique sequence from a
+    seed, indexed under WORK, and repeat reads of L bases packed for the
+    seed scan: the telomeric repeat (every walk reaches the read's end),
+    the same with a mismatch in its last base and with an N in its
+    middle, tandem repeats of periods 2 and 3, a repeat running into
+    unique sequence. Returns (index, (t, words, S))."""
+    import numpy as np
+
+    from dart_tpu_torch.index import build_index, load_index
+
+    d = os.path.join(WORK, "repeat")
+    prefix = os.path.join(d, "rep")
+    if not os.path.exists(prefix + ".bwt"):
+        os.makedirs(d, exist_ok=True)
+        rng = np.random.default_rng(7)
+        seq = ("TTAGGG" * 2000)[:12000] + "".join(rng.choice(list("ACGT"),
+                                                             12000))
+        with open(prefix + ".fa", "w") as f:
+            f.write(">rep\n" + "\n".join(seq[i:i + 70] for i in
+                                          range(0, len(seq), 70)) + "\n")
+        build_index(prefix + ".fa", prefix)
+    idx = load_index(prefix)
+    telo = np.tile(np.array([3, 3, 0, 2, 2, 2], np.uint8), L // 6 + 1)[:L]
+    last, mid = telo.copy(), telo.copy()
+    last[-1] = (last[-1] + 1) % 4
+    mid[L // 2] = 4
+    h = 2 * L // 5
+    reads = [telo, last, mid, np.tile(np.array([0, 1], np.uint8), L // 2),
+             np.tile(np.array([0, 0, 3], np.uint8), L // 3 + 1)[:L],
+             np.concatenate([telo[:h], idx.ref_codes[12000:12000 + L - h]])]
+    codes = np.stack(reads)
+    return idx, pack(codes, np.full(len(codes), L, np.int32), device)
+
+
+REPEAT_PLAIN: dict = {}  # (max_dup, wide) -> the plain scan of the repeat reads
+
+
+def check_repeats(device: str, shards: int = 1) -> int:
+    """The seed scans on the repeat reads against the plain version, at
+    max_dup 0, 1 and 100, narrow and wide, with the K-mer table and
+    without; with shards > 1 on a table range-sharded over as many slots
+    of the card. The plain scan (without the table, which gives the same
+    seeds) runs on the CPU, once for each max_dup and width: the literal
+    scan restarts at every position of a repeat read, O(L^2) steps of
+    tiny tensors, which the card runs no faster. Returns the largest
+    difference (0)."""
+    from dart_tpu_torch.ops.fm_torch import FMIndexTorch
+
+    idx, (t, words, S) = repeat_set(device)
+    err = 0
+    for max_dup in (0, 1, 100):
+        for wide in (False, True):
+            key = (max_dup, wide)
+            if key not in REPEAT_PLAIN:
+                REPEAT_PLAIN[key] = FMIndexTorch(
+                    idx, "cpu", max_dup_num=max_dup,
+                    wide=wide).plain_seed_scan(t.cpu(), words, S)
+            eng = FMIndexTorch(idx, device, max_dup_num=max_dup, lut_k=LUT_K,
+                               wide=wide, shard_devices=[device] * shards
+                               if shards > 1 else None)
+            for e in (eng, without_lut(eng)):
+                err = max(err, check_equal(
+                    f"seed scan on repeat reads (max_dup {max_dup}, wide "
+                    f"{wide}, K={e.lut_k}, {shards} shard(s))",
+                    e.seed_scan(t, words, S).cpu(), REPEAT_PLAIN[key]))
+    log(f"  seed scans == plain on {t.shape[0]} repeat reads (telomeric, "
+        "last-base mismatch, N, tandem, into unique) at max_dup 0, 1, 100, "
+        f"narrow and wide, K={LUT_K} and none, {shards} shard(s)")
+    return err
 
 
 def fmt_setup(eng) -> str:
@@ -382,28 +586,41 @@ def main_shape_times(engs, codes, rlens, rng, device: str, what: str) -> dict:
         sfx = "_wide" if wide else ""
         rows = torch.from_numpy(rng.integers(0, eng.seq_len, len(rlens)))
         rows = rows.to(eng.idx_dtype).to(device)
+        isz = 8 if wide else 4
+        lut_bytes = 4**eng.lut_k * (24 if wide else 16)
         jobs = {
             "seed_scan": (lambda: eng.seed_scan(t, words, S),
-                          lambda: eng.plain_seed_scan(t, words, S), 5),
+                          lambda: eng.plain_seed_scan(t, words, S), 5,
+                          lambda: scan_bound(eng, t, words, S)),
             "locate": (lambda: eng.locate_rows(rows),
-                       lambda: eng.plain_locate(rows), 20),
+                       lambda: eng.plain_locate(rows), 20,
+                       lambda: bytes_bound(2 * rows.numel() * isz
+                                           + touched_bytes(
+                           eng, lambda v: v.plain_locate(rows)))),
             "lut_build": (lambda: eng.build_lut(),
-                          lambda: eng.plain_build_lut(), 3),
+                          lambda: eng.plain_build_lut(), 3,
+                          lambda: bytes_bound(lut_bytes + touched_bytes(
+                              eng, lambda v: v.plain_build_lut()))),
         }
-        for name, (kern, plain, reps) in jobs.items():
+        for name, (kern, plain, reps, bound) in jobs.items():
             ms = time_ms(kern, reps)
             want, plain_ms = timed_once(plain)
             err = check_equal(f"{name}{sfx} ({what}, timing shape)", kern(),
                               want)
             out[name + sfx] = {"ms": ms, "plain_ms": plain_ms,
-                               "max_abs_err": err}
+                               "max_abs_err": err, **bound()}
+            b = out[name + sfx]
             log(f"  {name}{sfx} on the {what} index: kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.3f} ms")
+                f"plain {plain_ms:.3f} ms; bound {b['bound_ms']:.4f} ms "
+                f"({b['bound_bytes'] / 1e6:.1f} MB), "
+                f"{100 * b['bound_ms'] / ms:.1f}% of it")
     nolut = without_lut(engs[False])
     ms = time_ms(lambda: nolut.seed_scan(t, words, S), 5)
-    out["seed_scan"]["ms_without_lut"] = ms
+    b = scan_bound(nolut, t, words, S)["bound_ms"]
+    out["seed_scan"].update(ms_without_lut=ms, bound_ms_without_lut=b)
     log(f"  seed_scan without the K-mer table on the {what} index: kernel "
-        f"{ms:.4f} ms (R={len(rlens)}, Lp={words * 16}, S={S})")
+        f"{ms:.4f} ms, bound {b:.4f} ms (R={len(rlens)}, Lp={words * 16}, "
+        f"S={S})")
     return out
 
 
@@ -452,9 +669,8 @@ def same_bytes(a: str, b: str) -> bool:
 def phase_goldens(toy, device: str) -> None:
     """The nine goldens through the CLI (narrow engine, K-mer table on)
     and through DartAligner with the wide engine forced."""
-    from dart_tpu.cli import parse_args
-
     from dart_tpu_torch.aligner import default_lut_k, run
+    from dart_tpu_torch.cli import parse_args
 
     out = os.path.join(WORK, "golden")
     os.makedirs(out, exist_ok=True)
@@ -490,9 +706,8 @@ def align(idx, ds, out: str, tag: str, device: str, wide: bool,
     start at 0) is made inside it. Logs and returns wall time, reads/s,
     set-up seconds and launch counts (and each data group's, on a
     grid)."""
-    from dart_tpu.cli import parse_args
-
     from dart_tpu_torch.aligner import default_lut_k, run
+    from dart_tpu_torch.cli import parse_args
 
     err = io.StringIO()
     cfg = parse_args(["-i", ds["prefix"], "-f", ds["fq"][0], "-o",
@@ -556,11 +771,10 @@ def head_fastq(fq: str, n: int, out: str) -> str:
 
 def phase_scale(big, ds, device: str, n_parity: int) -> dict:
     """The 8mbp_se set through the narrow and the wide engine; then its
-    first n_parity reads through both against dart_tpu's NumPy engine."""
-    from dart_tpu.aligner import DartAligner
-    from dart_tpu.cli import parse_args
-
+    first n_parity reads through both against the port's CPU path (the
+    plain versions)."""
     from dart_tpu_torch.aligner import run
+    from dart_tpu_torch.cli import parse_args
 
     out = os.path.join(WORK, "scale")
     os.makedirs(out, exist_ok=True)
@@ -571,20 +785,17 @@ def phase_scale(big, ds, device: str, n_parity: int) -> dict:
         "byte-equal between the narrow and the wide engine")
 
     head = head_fastq(ds["fq"][0], n_parity, out)
-    for who in ("numpy", "port", "port_wide"):
+    for who in ("cpu", "port", "port_wide"):
         cfg = parse_args(["-i", ds["prefix"], "-f", head, "-o",
                           os.path.join(out, f"{who}.sam"), "-j",
                           os.path.join(out, f"{who}.tab"), "-silent"])
         with contextlib.redirect_stdout(io.StringIO()):
-            if who == "numpy":
-                cfg.engine = "numpy"
-                DartAligner(big, cfg).run()
-            else:
-                run(big, cfg, device, wide=who == "port_wide")
+            run(big, cfg, "cpu" if who == "cpu" else device,
+                wide=who == "port_wide")
     for who in ("port", "port_wide"):
-        require_same(out, who, "numpy", f"first {n_parity} reads")
+        require_same(out, who, "cpu", f"first {n_parity} reads")
     log(f"  first {n_parity} reads: SAM and junction table of both engines "
-        "byte-equal to dart_tpu's NumPy engine")
+        "byte-equal to the port's CPU path (plain versions)")
     return res
 
 
@@ -634,46 +845,41 @@ def nw_inputs(pairs, device: str):
 
 def phase_nw(idx, prefix: str, fq: str, device: str, n_reads: int,
              n_timed: int, seed: int) -> dict:
-    """The gap DP (K7): pairs recorded from dart_tpu's Python pipeline on
-    the port's engine (output equal to the NumPy engine's), kernel vs
-    plain planes, nw_align_batch vs the host C++ DP, and times."""
+    """The gap DP (K7): pairs recorded from the port's Python pipeline on
+    the card's engine (output equal to the same pipeline on the CPU
+    path's), kernel vs plain planes, nw_align_batch vs the host C++ DP,
+    and times."""
     import numpy as np
 
-    from dart_tpu.aligner import DartAligner
-    from dart_tpu.cli import parse_args
-    from dart_tpu.ops.nw_numpy import nw_align
-
     from dart_tpu_torch.aligner import run
+    from dart_tpu_torch.cli import parse_args
     from dart_tpu_torch.ops import nw_torch
+    from dart_tpu_torch.ops.nw_numpy import nw_align
     from dart_tpu_torch.ops.nw_plain import MAX_LEN, nw_plain
 
     out = os.path.join(WORK, "nw")
     os.makedirs(out, exist_ok=True)
     head = head_fastq(fq, n_reads, out)
     recorded = {}
-    for who in ("port", "numpy"):
+    for who in ("port", "cpu"):
         cfg = parse_args(["-i", prefix, "-f", head, "-o",
                           os.path.join(out, f"{who}.sam"), "-j",
-                          os.path.join(out, f"{who}.tab"), "-silent"])
-        cfg.native = False
+                          os.path.join(out, f"{who}.tab"), "-silent",
+                          "--no-native"])
         with nw_torch.recording_host_dp() as rec, \
                 contextlib.redirect_stdout(io.StringIO()):
-            if who == "numpy":
-                cfg.engine = "numpy"
-                DartAligner(idx, cfg).run()
-            else:
-                run(idx, cfg, device)
+            run(idx, cfg, "cpu" if who == "cpu" else device)
         recorded[who] = rec
-    require_same(out, "port", "numpy", f"Python pipeline, first {n_reads} "
+    require_same(out, "port", "cpu", f"Python pipeline, first {n_reads} "
                  "reads")
-    if recorded["port"] != recorded["numpy"]:
+    if recorded["port"] != recorded["cpu"]:
         raise AssertionError("the two engines' pipelines sent other DPs")
     pairs = [p for p in recorded["port"] if max(map(len, p)) <= MAX_LEN]
     if not pairs:
         raise AssertionError("the Python pipeline sent no gap DP")
     biggest = max(max(map(len, p)) for p in pairs)
-    log(f"  first {n_reads} reads through dart_tpu's Python pipeline on the "
-        f"port's engine: SAM and junction table equal to the NumPy engine's; "
+    log(f"  first {n_reads} reads through the port's Python pipeline on the "
+        f"card's engine: SAM and junction table equal to the CPU path's; "
         f"{len(recorded['port'])} DPs recorded, {len(pairs)} of <= 127 bases "
         f"a side (largest side {biggest})")
 
@@ -737,6 +943,9 @@ def phase_nw(idx, prefix: str, fq: str, device: str, n_reads: int,
             f"nw planes ({what}, timing shape)",
             nw_torch.nw_planes(c1, c2, mn), want))
         res["ms" + key], res["plain_ms" + key] = ms, plain_ms
+        if not key:  # its bound: the inputs in, the planes out, once each
+            res.update(bytes_bound(sum(x.numel() * x.element_size()
+                                       for x in (c1, c2, mn, want))))
         del want
         log(f"  nw on {n_timed} pairs ({what}): kernel {ms:.4f} ms, plain "
             f"{plain_ms:.3f} ms")
@@ -775,11 +984,10 @@ def phase_mem_walks(toy, big, ds, device: str, n_timed: int,
     import numpy as np
     import torch
 
-    from dart_tpu.pipeline.seeding import (_expand_occurrences,
-                                           seed_reads_from_all_walks)
-
     from dart_tpu_torch.entry import entry
     from dart_tpu_torch.ops.fm_torch import FMIndexTorch
+    from dart_tpu_torch.pipeline.seeding import (_expand_occurrences,
+                                                 seed_reads_from_all_walks)
 
     rng = np.random.default_rng(seed)
     res = {"max_abs_err": 0}
@@ -850,9 +1058,19 @@ def phase_mem_walks(toy, big, ds, device: str, n_timed: int,
             raise AssertionError("a MEM-walk path launched no kernel")
         res["ms"] = time_ms(lambda: eng.mem_walk_rows(c, v), 20)
         _, res["plain_ms"] = timed_once(lambda: eng.plain_mem_walks(c, v))
+        res.update(walks_bound(eng, c, v))
         log(f"  mem_walks on {len(chars)} x 128 tasks of the 8 Mbp set: "
             f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.3f} ms")
     return res
+
+
+def walks_bound(eng, chars, valid) -> dict:
+    """K8's bound on these tasks: chars and valid in, lens, x0 and x2
+    out, and the table rows the walks read, once each."""
+    W = chars.shape[0]
+    out = W * (4 + 2 * (8 if eng.wide else 4))
+    return bytes_bound(chars.numel() + valid.numel() + out + touched_bytes(
+        eng, lambda v: v.plain_mem_walks(chars, valid)))
 
 
 def boundary_reads(idx, n_shards: int, wide: bool):
@@ -976,6 +1194,9 @@ def phase_mesh_kernels(toy, big, ds, device: str, seed: int) -> dict:
     log(f"  8 Mbp at index=2: lut_build_sharded and lut_build_wide_sharded "
         f"== plain (whole K={LUT_K} tables), seed_scan_sharded and "
         f"seed_scan_wide_sharded == plain on {len(sc)} reads")
+    err = check_repeats(device, shards=2)
+    note("seed_scan_sharded", err)
+    note("seed_scan_wide_sharded", err)
 
     if device != "cuda":
         return res
@@ -984,6 +1205,7 @@ def phase_mesh_kernels(toy, big, ds, device: str, seed: int) -> dict:
     for k, v in times.items():
         note(k + "_sharded", v.pop("max_abs_err"))
         v.pop("ms_without_lut", None)
+        v.pop("bound_ms_without_lut", None)
         res[k + "_sharded"].update(v)
     chars, valid = walk_tasks(codes, rlens, rng, 128)
     c, v = (torch.from_numpy(a).to(device) for a in (chars, valid))
@@ -993,7 +1215,8 @@ def phase_mesh_kernels(toy, big, ds, device: str, seed: int) -> dict:
         note("mem_walks_sharded", check_equal("mem_walks_sharded (8 Mbp)",
                                               g, w))
     res["mem_walks_sharded"].update(
-        ms=time_ms(lambda: eng.mem_walk_rows(c, v), 20), plain_ms=plain_ms)
+        ms=time_ms(lambda: eng.mem_walk_rows(c, v), 20), plain_ms=plain_ms,
+        **walks_bound(eng, c, v))
     log(f"  mem_walks_sharded on {len(chars)} x 128 tasks of the 8 Mbp set: "
         f"kernel {res['mem_walks_sharded']['ms']:.4f} ms, plain "
         f"{plain_ms:.3f} ms")
@@ -1195,11 +1418,239 @@ def phase_profile(ds, device: str) -> dict:
     if not any("seed_scan_kernel" in k for k in res["kernels_ms"]):
         raise AssertionError("the trace names no seed_scan_kernel")
     top = sorted(res["kernels_ms"].items(), key=lambda kv: -kv[1])[:4]
+    res["seed_scan_ms"] = sum(v for k, v in res["kernels_ms"].items()
+                              if "seed_scan_kernel" in k)
     log(f"  trace of {res['window_s']:.3f} s: kernels {res['kernel_ms']:.3f} "
-        f"ms in all, device idle {100 * res['idle_share']:.2f}% of the "
-        "window; " + "; ".join(f"{kernel_name(k)} {v:.3f} ms"
-                               for k, v in top))
+        f"ms in all (seed scans {res['seed_scan_ms']:.3f} ms), device idle "
+        f"{100 * res['idle_share']:.2f}% of the window; "
+        + "; ".join(f"{kernel_name(k)} {v:.3f} ms" for k, v in top))
     return res
+
+
+def ptxas_table(src: str) -> list:
+    """``nvcc -Xptxas -v`` of a source: each kernel's demangled name,
+    registers, stack frame and spill bytes."""
+    import re
+
+    from dart_tpu_torch.ops import build
+
+    rows, cur = [], None
+    for line in build.ptxas_report(src).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"name": m.group(1)}
+            rows.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                cur.update(stack=int(m.group(1)), spill_st=int(m.group(2)),
+                           spill_ld=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["regs"] = int(m.group(1))
+    filt = subprocess.run(["c++filt"], input="\n".join(r["name"] for r in rows),
+                          capture_output=True, text=True)
+    if filt.returncode == 0:
+        for r, name in zip(rows, filt.stdout.splitlines()):
+            r["name"] = name.replace("(anonymous namespace)::", "")
+    return rows
+
+
+def log_ptxas(rows: list, what: str, only: str = "") -> None:
+    for r in rows:
+        if only in r["name"]:
+            log(f"  ptxas ({what}): {r['name'][:90]}: {r.get('regs')} "
+                f"registers, {r.get('stack')} B stack, spills "
+                f"{r.get('spill_st')}/{r.get('spill_ld')} B")
+
+
+def chase_ns(mb: int, device: str, steps: int = 200_000) -> float:
+    """The latency in ns of one dependent load in a buffer of mb MiB: one
+    thread chases a random cycle over its 32-byte lines (``probe.cu``),
+    after one lap (at most 2^21 loads) has warmed the caches."""
+    import torch
+
+    from dart_tpu_torch.ops import build
+
+    lines = mb * 2**20 // 32
+    g = torch.Generator(device=device)
+    g.manual_seed(mb)
+    perm = torch.randperm(lines, device=device, generator=g)
+    nxt = torch.zeros(lines * 8, dtype=torch.int32, device=device)
+    nxt[perm * 8] = (torch.roll(perm, -1) * 8).int()
+    out = torch.zeros(1, dtype=torch.int32, device=device)
+    lib = build.load()
+
+    def chase(n):
+        rc = lib.dart_probe_chase(nxt.data_ptr(), n, int(perm[0]) * 8,
+                                  out.data_ptr(),
+                                  torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"chase launch failed: CUDA error {rc}")
+
+    chase(min(lines, 1 << 21))
+    _, ms = timed_once(lambda: chase(steps))
+    return ms * 1e6 / steps
+
+
+def load_stats(loads) -> dict:
+    """Per-read dependent-load counts: mean, p99, max, and the sum over
+    warps (32 reads in launch order) of each warp's largest."""
+    import torch
+
+    f = loads.double()
+    pad = (-loads.numel()) % 32
+    warps = torch.cat([loads, loads.new_zeros(pad)]).view(-1, 32)
+    return {"mean": float(f.mean()), "p99": float(f.quantile(0.99)),
+            "max": int(loads.max()), "argmax": int(loads.argmax()),
+            "warp_max_sum": int(warps.max(1).values.sum()),
+            "sum": int(loads.sum()), "warps": warps.shape[0]}
+
+
+def phase_diagnosis(big, ds, device: str) -> dict:
+    """What bounds the seed scan (K1, K4): K1's time at 16,384, 34,464, 65,536 and 262,144 reads of
+    8mbp_se (flat in R: the critical path or the tail sets it; linear:
+    throughput); each read's dependent table loads, counted by the plain
+    version, at the main path's 65,536 reads, with the K-mer table and
+    without (narrow) and with it (wide, whose SA is sampled more
+    densely); the latency of one dependent load at 20 MiB (in the L2)
+    and 128 MiB (past it); the critical-path floor (the longest read's
+    loads times that latency); and ``-Xptxas -v`` of every kernel."""
+    import numpy as np
+    import torch
+
+    from dart_tpu_torch.ops.fm_torch import FMIndexTorch
+
+    res = {"ptxas": ptxas_table(os.path.join(HERE, FM_SOURCE))}
+    log_ptxas(res["ptxas"], "this tree")
+    res["chase_ns"] = {mb: chase_ns(mb, device) for mb in (20, 128)}
+    log(f"  dependent-load latency (pointer chase, one thread): "
+        f"{res['chase_ns'][20]:.1f} ns at 20 MiB, "
+        f"{res['chase_ns'][128]:.1f} ns at 128 MiB")
+    eng = FMIndexTorch(big, device, lut_k=LUT_K)
+    codes, rlens = read_fastq(ds["fq"][0], 1 << 18)
+    reps = -(-(1 << 18) // len(rlens))
+    codes, rlens = np.tile(codes, (reps, 1)), np.tile(rlens, reps)
+    res["k1_ms_by_R"] = {}
+    for R in (16384, 34464, MAIN_R, 1 << 18):
+        t, words, S = pack(codes[:R], rlens[:R], device)
+        res["k1_ms_by_R"][R] = ms = time_ms(lambda: eng.seed_scan(
+            t, words, S), 5)
+        log(f"  K1 (narrow, K={LUT_K}) at R={R}: {ms:.4f} ms, "
+            f"{1e3 * ms / R:.3f} ns a read")
+    t, words, S = pack(codes[:MAIN_R], rlens[:MAIN_R], device)
+    wide = FMIndexTorch(big, device, lut_k=LUT_K, wide=True)
+    for tag, e in (("lut", eng), ("no_lut", without_lut(eng)),
+                   ("wide_lut", wide)):
+        kinds = torch.zeros((MAIN_R, 5), dtype=torch.int64, device=device)
+        e.plain_seed_scan(t, words, S, loads=kinds)
+        loads = kinds[:, :4].sum(1)
+        st = res[f"loads_{tag}"] = load_stats(loads)
+        st["by_kind"] = dict(zip(("extend", "locate", "compare", "lut",
+                                  "walks"), kinds.sum(0).tolist()))
+        st["longest_by_kind"] = kinds[st["argmax"]].tolist()
+        floor_us = st["max"] * res["chase_ns"][20] / 1e3
+        st["floor_ms"] = floor_us / 1e3
+        log(f"  dependent loads a read ({tag}, {MAIN_R} reads): mean "
+            f"{st['mean']:.1f}, p99 {st['p99']:.0f}, max {st['max']} (read "
+            f"{st['argmax']}); sum of warp maxima {st['warp_max_sum']} over "
+            f"{st['warps']} warps (sum of loads {st['sum']}); critical-path "
+            f"floor {floor_us:.2f} us; all reads by kind {st['by_kind']}, "
+            f"the longest read [extend, locate, compare, lut, walks] "
+            f"{st['longest_by_kind']}")
+    return res
+
+
+def fm_call(lib, eng, t, words: int, S: int, lut) -> "torch.Tensor":
+    """One seed-scan launch of ``lib``'s C entry for ``eng``'s layout and
+    table access, on ``eng``'s tables, as ``FMIndexTorch.seed_scan``
+    makes it (the C interface is the same in every version)."""
+    import torch
+
+    out = torch.empty((t.shape[0], 1 + 4 * S), dtype=eng.idx_dtype,
+                      device=eng.device)
+    fn = getattr(lib, f"dart_fm_seed_scan{eng._sfx}")
+    rc = fn(*eng._tab, eng._params_ptr(),
+            lut.data_ptr() if lut is not None else None,
+            eng.lut_k if lut is not None else 0, t.data_ptr(), t.shape[0],
+            words, S, out.data_ptr(), eng._stream())
+    if rc:
+        raise RuntimeError(f"seed scan launch failed: CUDA error {rc}")
+    return out
+
+
+def phase_redesign(indexes: dict, device: str) -> dict:
+    """The parent's seed scan (``chip_smoke_work/parent/fm_kernels.cu``,
+    put there for a measurement call) against this tree's, in one call
+    on one card: its ``-Xptxas -v``, then at 8 and 50 Mbp, narrow and
+    wide, with and without the K-mer table, both held equal to the
+    plain version's output and timed in turns (old, new, new, old) with
+    the table warm; and both at 16,384 and 262,144 reads of the first
+    index (narrow, K = 11), which shows whether the floor under the time
+    moved. Skipped without the parent's source."""
+    import ctypes
+
+    import numpy as np
+
+    from dart_tpu_torch.ops import build
+    from dart_tpu_torch.ops.fm_torch import FMIndexTorch
+
+    parent = os.path.join(WORK, "parent")
+    if not os.path.exists(os.path.join(parent, "fm_kernels.cu")):
+        log("  skipped: no parent fm_kernels.cu under chip_smoke_work/parent")
+        return {"skipped": True}
+    old = build.typed(ctypes.CDLL(build.build(parent, ("fm_kernels.cu",))[0]))
+    res = {"ptxas_old": ptxas_table(os.path.join(parent, "fm_kernels.cu")),
+           "times": {}}
+    log_ptxas(res["ptxas_old"], "parent", "seed_scan")
+    for what, (idx, fq) in indexes.items():
+        codes, rlens = read_fastq(fq, MAIN_R)
+        t, words, S = pack(codes, rlens, device)
+        for wide in (False, True):
+            eng = FMIndexTorch(idx, device, lut_k=LUT_K, wide=wide)
+            for lut in (eng.lut, None):
+                view = eng if lut is not None else without_lut(eng)
+                tag = f"{what} {'wide' if wide else 'narrow'} " + \
+                    ("K=11" if lut is not None else "no LUT")
+                want = view.plain_seed_scan(t, words, S)
+                check_equal(f"old seed scan ({tag})",
+                            fm_call(old, eng, t, words, S, lut), want)
+                check_equal(f"new seed scan ({tag})",
+                            view.seed_scan(t, words, S), want)
+                res["times"][tag] = turns(
+                    tag, lambda: fm_call(old, eng, t, words, S, lut),
+                    lambda: view.seed_scan(t, words, S))
+            del eng
+    what, (idx, fq) = next(iter(indexes.items()))
+    eng = FMIndexTorch(idx, device, lut_k=LUT_K)
+    codes, rlens = read_fastq(fq, MAIN_R)
+    for R in (16384, 1 << 18):
+        reps = -(-R // len(rlens))
+        t, words, S = pack(np.tile(codes, (reps, 1))[:R],
+                           np.tile(rlens, reps)[:R], device)
+        check_equal(f"new seed scan ({what}, R={R}) vs old",
+                    eng.seed_scan(t, words, S),
+                    fm_call(old, eng, t, words, S, eng.lut))
+        res["times"][f"{what} narrow K=11 R={R}"] = turns(
+            f"{what} narrow K=11, R={R}",
+            lambda: fm_call(old, eng, t, words, S, eng.lut),
+            lambda: eng.seed_scan(t, words, S))
+    return res
+
+
+def turns(tag: str, old, new) -> dict:
+    """old and new timed in turns (old, new, new, old); logs and returns
+    both pairs of times."""
+    import numpy as np
+
+    ms = {"old": [], "new": []}
+    for which in ("old", "new", "new", "old"):
+        ms[which].append(time_ms(old if which == "old" else new, 10))
+    o, n = ms["old"], ms["new"]
+    log(f"  {tag}: old {o[0]:.4f} / {o[1]:.4f} ms, new {n[0]:.4f} / "
+        f"{n[1]:.4f} ms (x{np.mean(o) / np.mean(n):.2f})")
+    return ms
 
 
 def phase_cards(toy, big, ds, n_dist: int) -> dict:
@@ -1305,8 +1756,7 @@ def main() -> int:
         log(line)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
-    from dart_tpu.index import load_index
-
+    from dart_tpu_torch.index import load_index
     from dart_tpu_torch.ops import build
 
     failed = []
@@ -1354,6 +1804,7 @@ def main() -> int:
             big = load_index(ds["prefix"])
             phase("kernels", lambda: phase_kernels(
                 toy, big, ds, "cuda", 4096, 1 << 16, MAIN_R, 20260816))
+            phase("diagnosis", lambda: phase_diagnosis(big, ds, "cuda"))
             phase("goldens", lambda: phase_goldens(toy, "cuda"))
             phase("scale", lambda: phase_scale(big, ds, "cuda", N_PARITY))
             phase("nw", lambda: phase_nw(big, ds["prefix"], ds["fq"][0],
@@ -1375,12 +1826,16 @@ def main() -> int:
             phase("kernels50", lambda: phase_kernels50(big50, ds50, "cuda",
                                                        20261016))
             phase("scale50", lambda: phase_scale50(big50, ds50, "cuda"))
+            if "dataset" in state:
+                phase("redesign", lambda: phase_redesign(
+                    {"8 Mbp": (big, ds["fq"][0]),
+                     "50 Mbp": (big50, ds50["fq"][0])}, "cuda"))
     finally:
         if gen50.poll() is None:
             gen50.kill()
             gen50.wait()
     if failed or not {"scale", "scale50", "nw", "mem_walks", "mesh",
-                      "dryrun", "dist", "profile"} <= set(state):
+                      "dryrun", "dist", "profile", "diagnosis"} <= set(state):
         log(f"chip_smoke: failed phases: {', '.join(failed) or 'none'}")
         return 1
     kern, scale = state["kernels"], state["scale"]
@@ -1389,19 +1844,21 @@ def main() -> int:
     err50 = {k: v["max_abs_err"] for k, v in k50["times"].items()}
     err50["lut_build_wide"] = max(err50["lut_build_wide"],
                                   k50["lut_build_wide"])
-    rows = [{"name": k, "route": "cuda", "source": FM_SOURCE,
-             "replaces": KERNELS[k], "launches": launches[k],
-             "max_abs_err": max(kern[k]["max_abs_err"], err50[k]),
-             "ms": kern[k]["ms"], "plain_ms": kern[k]["plain_ms"]}
-            for k in KERNELS]
+
+    def row(name, source, replaces, n, r, err):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": n, "max_abs_err": err,
+                **{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}}
+
+    rows = [row(k, FM_SOURCE, KERNELS[k], launches[k], kern[k],
+                max(kern[k]["max_abs_err"], err50[k])) for k in KERNELS]
     for name, source, replaces in (
             ("nw", NW_SOURCE, NW_REPLACES),
             ("mem_walks", FM_SOURCE, MEM_WALKS_REPLACES)):
         r = state[name]
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": r["launches"],
-                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "plain_ms": r["plain_ms"]})
+        rows.append(row(name, source, replaces, r["launches"], r,
+                        r["max_abs_err"]))
     # the Sharded kernels: launches on the mesh path (data=2,index=2,
     # narrow and wide; the MEM walk in the dry run), times at index=2
     runs, mk = state["mesh"]["runs"], state["mesh"]["kernels"]
@@ -1411,11 +1868,8 @@ def main() -> int:
                     state["dryrun"]["toy"]["launches"]["mem_walks_sharded"]}
     for k in SHARDED:
         base = k[:-len("_sharded")]
-        rows.append({"name": k, "route": "cuda", "source": FM_SOURCE,
-                     "replaces": KERNELS.get(base, MEM_WALKS_REPLACES),
-                     "launches": launches[k],
-                     "max_abs_err": mk[k]["max_abs_err"], "ms": mk[k]["ms"],
-                     "plain_ms": mk[k]["plain_ms"]})
+        rows.append(row(k, FM_SOURCE, KERNELS.get(base, MEM_WALKS_REPLACES),
+                        launches[k], mk[k], mk[k]["max_abs_err"]))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

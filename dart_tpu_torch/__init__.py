@@ -1,11 +1,14 @@
 """dart_tpu_torch — the dart-tpu aligner on PyTorch and CUDA.
 
-A port of the JAX package ``dart_tpu`` to one NVIDIA Hopper GPU. The
-host-side modules of ``dart_tpu`` (index loader and builder, FASTX
-readers, the native C++ packer and pipeline, SAM/BAM writers, CLI
-parser, ``DartAligner``) contain no JAX and are imported as they are.
-This package replaces only the device engine: the FM-index tables on
-the card (``ops.layout``, narrow below 2^31 text positions and wide
+A port of the JAX package ``dart_tpu`` to one NVIDIA Hopper GPU, which
+stands alone: it holds its own copies of the host code (``index``: the
+index loader and builder; ``io``: the FASTX readers and the SAM/BAM
+writers; ``native``: the C++ packer, chunk pipeline and encoders, built
+with g++ at first use; ``pipeline``: seeding, chaining and the Python
+finalize; ``evaluation``; ``config`` and ``constants``), the
+orchestration (``aligner.DartAligner``) and the command line (``cli``),
+so that it runs without ``dart_tpu`` installed. Its device engine: the
+FM-index tables on the card (``ops.layout``, narrow below 2^31 text positions and wide
 from there on), the seed-scan, SA-locate, K-mer table and MEM-walk
 kernels written by hand in CUDA (``csrc/fm_kernels.cu``, built by
 ``ops.build``), their plain PyTorch versions (``ops.fm_plain``), and
@@ -20,7 +23,8 @@ range-sharded table of ``ops.layout.ShardedTable`` read by the kernels'
 ``Sharded`` access), multi-host runs over ``torch.distributed``
 (``parallel.distributed``) and ``entry.dryrun_multichip``.
 
-This package imports ``torch`` and never ``jax``.
+This package imports ``torch`` and never ``jax``, nor anything of
+``dart_tpu``.
 """
 
 __version__ = "0.1.0"

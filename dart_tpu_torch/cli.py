@@ -1,28 +1,54 @@
-"""``dart-tpu-torch``: the dart-tpu command line on the port's engine.
+"""``dart-tpu-torch``: the flag-compatible command line (reference:
+main.cpp:96-239) on the port's engine.
 
-Takes every flag of ``dart-tpu`` (parsed by ``dart_tpu.cli.parse_args``)
-and its ``index``, ``eva``, ``fluxeva`` and ``sjeva`` subcommands, plus
-``--device DEV`` (default ``cuda``; ``cpu`` runs the plain PyTorch
-kernels). Without a card, ``cuda`` raises rather than falling back. The
-engine follows the index (wide from 2^31 text positions on), the device
-(K-mer table of K = 11 on ``cuda``) and ``--mesh``, as
-``aligner.make_engine`` chooses them; ``--profile DIR`` writes a
-``torch.profiler`` trace; ``--dist-nprocs N`` > 1 makes this process
-one of N of a ``torch.distributed`` run (``parallel.distributed``).
+Every reference flag is accepted with identical defaults and clamping,
+as ``dart-tpu`` takes them, with its ``index``, ``eva``, ``fluxeva``
+and ``sjeva`` subcommands, plus ``--device DEV`` (default ``cuda``;
+``cpu`` runs the plain PyTorch kernels). Without a card, ``cuda``
+raises rather than falling back. The engine follows the index (wide
+from 2^31 text positions on), the device (K-mer table of K = 11 on
+``cuda``) and ``--mesh``, as ``aligner.make_engine`` chooses them;
+``--profile DIR`` writes a ``torch.profiler`` trace; ``--dist-nprocs N``
+> 1 makes this process one of N of a ``torch.distributed`` run
+(``parallel.distributed``).
 """
 
 from __future__ import annotations
 
-import contextlib
-import io
 import os
 import sys
 
-from dart_tpu.cli import parse_args
-from dart_tpu.cli import usage as dart_tpu_usage
+from .config import DartConfig
+from .constants import VERSION_STR
 
 PROG = "dart-tpu-torch"
-EXTENSIONS = """\
+
+
+def usage(prog: str = PROG) -> None:
+    print(f"""
+DART-TPU-TORCH (the dart-tpu aligner on PyTorch and CUDA, reference
+parity v{VERSION_STR})
+
+Usage: {prog} -i Index_Prefix -f <ReadFile_A1 ...> [-f2 <ReadFile_A2 ...>] -o|-bo Output
+       {prog} index ref.fa prefix
+       {prog} eva|fluxeva|sjeva ...
+
+Options: -t INT        number of threads [4]
+         -f            files with #1 mates reads
+         -f2           files with #2 mates reads
+         -mis INT      maximal number of mismatches in an alignment
+         -max_dup INT  maximal number of repetitive fragments (100-10000) [100]
+         -o            alignment filename in SAM format
+         -bo           alignment filename in BAM format
+         --bam-level INT  BGZF compression level 0-9 [1]
+         -j            splice junction output filename [junctions.tab]
+         -m            output multiple alignments [false]
+         -all_sj       detect all splice junctions regardless of mapq [false]
+         -p            paired-end reads are interlaced in the same file
+         -unique       output unique alignments
+         -max_intron   the maximal intron size [500000]
+         -min_intron   the minimal intron size [10]
+         -v            version
 Extensions:
          --device DEV  cuda | cuda:N | cpu [cuda]; cpu runs the plain
                        PyTorch kernels
@@ -44,16 +70,109 @@ Extensions:
                        multi-host run via torch.distributed (gloo over
                        TCP); with cuda, process I runs on card
                        I mod the card count
-"""
+""")
 
 
-def usage(prog: str = PROG) -> None:
-    """dart-tpu's usage lines for the reference's flags, then the
-    port's own extensions."""
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        dart_tpu_usage(prog)
-    print(buf.getvalue().split("Extensions:")[0] + EXTENSIONS)
+def parse_args(argv: list[str]) -> DartConfig | None:
+    cfg = DartConfig()
+    i = 0
+    n = len(argv)
+    while i < n:
+        a = argv[i]
+        if a == "-i":
+            i += 1
+            cfg.index_prefix = argv[i]
+        elif a == "-f":
+            while i + 1 < n and not argv[i + 1].startswith("-"):
+                i += 1
+                cfg.read_files_1.append(argv[i])
+        elif a == "-f2":
+            while i + 1 < n and not argv[i + 1].startswith("-"):
+                i += 1
+                cfg.read_files_2.append(argv[i])
+        elif a == "-t":
+            i += 1
+            cfg.threads = int(argv[i])
+            if cfg.threads <= 0:
+                print("Warning! Thread number should be a positive number!")
+                cfg.threads = 4
+        elif a == "-o":
+            i += 1
+            cfg.output_format = 0
+            cfg.output_file = argv[i]
+        elif a == "-bo":
+            i += 1
+            cfg.output_format = 1
+            cfg.output_file = argv[i]
+        elif a in ("--bam-level", "-bam_level") and i + 1 < n:
+            i += 1
+            cfg.bam_level = min(max(int(argv[i]), 0), 9)
+        elif a == "-mis" and i + 1 < n:
+            i += 1
+            cfg.max_mismatch = int(argv[i])
+        elif a == "-max_dup" and i + 1 < n:
+            i += 1
+            cfg.max_dup_num = min(max(int(argv[i]), 100), 10000)
+        elif a == "-silent":
+            cfg.silent = True
+        elif a == "-j":
+            i += 1
+            cfg.sj_file = argv[i]
+        elif a == "-p":
+            cfg.pair_end = True
+        elif a == "-m":
+            cfg.multi_hit = True
+        elif a == "-unique":
+            cfg.unique_only = True
+        elif a == "-all_sj":
+            cfg.find_all_junction = True
+        elif a == "-max_intron":
+            i += 1
+            cfg.max_intron_size = max(int(argv[i]), 100000)
+        elif a == "-min_intron":
+            i += 1
+            cfg.min_intron_size = int(argv[i])
+        elif a in ("-d", "-debug"):
+            cfg.debug = True
+        elif a in ("-v", "--version"):
+            print(f"DART-TPU (reference parity v{VERSION_STR})\n")
+            return None
+        elif a == "--engine":
+            i += 1
+            cfg.engine = argv[i]
+        elif a == "--mesh":
+            i += 1
+            cfg.mesh = argv[i]
+        elif a == "--batch":
+            i += 1
+            cfg.batch_reads = max(2, int(argv[i]))
+        elif a == "--no-native":
+            cfg.native = False
+        elif a == "--checkpoint":
+            cfg.checkpoint = True
+        elif a == "--ckpt-interval":
+            i += 1
+            cfg.ckpt_interval_s = float(argv[i])
+        elif a == "--stats":
+            cfg.stats = True
+        elif a == "--profile":
+            i += 1
+            cfg.profile_dir = argv[i]
+        elif a == "--dist-coordinator":
+            i += 1
+            cfg.dist_coordinator = argv[i]
+        elif a == "--dist-nprocs":
+            i += 1
+            cfg.dist_nprocs = int(argv[i])
+        elif a == "--dist-pid":
+            i += 1
+            cfg.dist_pid = int(argv[i])
+        else:
+            print(f"Error! Unknown parameter: {a}", file=sys.stderr)
+            usage(PROG)
+            sys.exit(1)
+        i += 1
+    return cfg
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -72,25 +191,21 @@ def main(argv: list[str] | None = None) -> int:
         return 0
     if argv[0] == "index":
         if len(argv) == 3:
-            from dart_tpu.index import build_index
+            from .index import build_index
 
             build_index(argv[1], argv[2])
             return 0
         print(f"usage: {PROG} index ref.fa prefix", file=sys.stderr)
         return 1
     if argv[0] in ("eva", "fluxeva", "sjeva"):
-        from dart_tpu.evaluation import main as eval_main
+        from .evaluation import main as eval_main
 
         return eval_main(argv)
 
-    out = io.StringIO()
     try:
-        with contextlib.redirect_stdout(out):
-            cfg = parse_args(argv)
-    except SystemExit as e:  # an unknown flag; parse_args printed its usage
-        usage()
+        cfg = parse_args(argv)
+    except SystemExit as e:  # an unknown flag; parse_args printed the usage
         return int(e.code or 0)
-    sys.stdout.write(out.getvalue())
     if cfg is None:
         return 0
     if not cfg.read_files_1:
@@ -113,9 +228,8 @@ def main(argv: list[str] | None = None) -> int:
 
         return run_distributed(cfg, cfg.dist_coordinator, cfg.dist_nprocs,
                                cfg.dist_pid, device)
-    from dart_tpu.index import load_index
-
     from .aligner import run
+    from .index import load_index
 
     print("Load the genome index files...", file=sys.stderr)
     run(load_index(cfg.index_prefix), cfg, device)

@@ -35,13 +35,30 @@
 // popcounts, so the kernels are bound by the latency of those dependent
 // gathers, not by bandwidth: an 8 Mbp genome's table is ~20 MB and sits in
 // the 50 MB L2; a 50 Mbp one (125 MB) and GRCh38's do not, and there each
-// step costs a DRAM round trip, which the LUT saves K - 1 times a walk. The
-// design answers latency with parallelism: one thread per read (or per row
-// to locate, per K-mer, per MEM-walk task), a plain sequential loop in
-// each thread, 128 threads a block, so that tens of thousands of
-// independent gathers are in flight at once. A row is read as 16-byte loads (two narrow, four wide).
-// The TPU form's merged 2R-row gather, select trees, one-hot reductions and
-// masks for every mode are not carried over: a thread simply branches.
+// step costs a DRAM round trip, which the LUT saves K - 1 times a walk. A
+// row is read as 16-byte loads (two narrow, four wide).
+//
+// The locate, the K-mer table build and the MEM walk answer latency with
+// parallelism: one thread per row to locate, per K-mer, per MEM-walk task,
+// a plain sequential loop in each thread, 128 threads a block, so that
+// tens of thousands of independent gathers are in flight at once.
+//
+// The seed scan (K1 narrow, K4 wide) was on the TPU one vectorised
+// automaton over a chunk's reads: every lane took the same step, a merged
+// 2R-row gather with select trees, one-hot reductions and masks for every
+// mode, under an iteration cap with a rerun of the stragglers. Here one
+// thread scans one read, and what bounds a launch is its longest lanes,
+// not the count of reads: a read whose walks restart many times, or whose
+// matches each walk an SA locate, holds its warp, each of its steps a
+// dependent load plus the step's arithmetic, with ever fewer warps left to
+// hide either, while a warp whose lanes are in different modes (start,
+// extend, locate, compare) would run each mode's load in turn. So the scan
+// is a state machine with one uniform step: every lane settles what reads
+// no memory, then all issue their loads at once, then apply them, with the
+// extension's arithmetic in one place; the reads sit in shared memory, the
+// next walk's K-mer entry is loaded ahead, and three exact shortcuts (at
+// seed_scan_kernel) take the steps the longest lanes spend on walks whose
+// outcome is already known.
 //
 // Every read of the merged table goes through a table-access parameter
 // beside the layout trait (the kernels are templates on the access, whose
@@ -102,9 +119,34 @@ FmParams<I> make_params(const I* h) {
   return p;
 }
 
-__device__ __forceinline__ uint32_t sel4(const uint4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+// c ? x : y, as one `selp` that the compiler keeps as it is. A plain
+// select between two words of a row array may be rewritten into one load
+// at a computed offset, which moves the whole array to the stack (local
+// memory); the words of a row are therefore picked with selw alone. Off
+// the card (a host build of this file) it is the plain select.
+__device__ __forceinline__ uint32_t selw(bool c, uint32_t x, uint32_t y) {
+#ifdef __CUDA_ARCH__
+  uint32_t r;
+  asm("{\n\t.reg .pred p;\n\tsetp.ne.u32 p, %3, 0;\n\t"
+      "selp.b32 %0, %1, %2, p;\n\t}"
+      : "=r"(r)
+      : "r"(x), "r"(y), "r"((uint32_t)c));
+  return r;
+#else
+  return c ? x : y;
+#endif
 }
+
+// Word i (0..3, at run time) of a 16-byte vector.
+__device__ __forceinline__ uint32_t sel4(const uint4& v, int i) {
+  return selw(i & 2, selw(i & 1, v.w, v.z), selw(i & 1, v.y, v.x));
+}
+
+// The Occ counts of the four bases.
+template <class I>
+struct Occ4 {
+  I c0, c1, c2, c3;
+};
 
 struct Narrow {
   using I = int;
@@ -112,8 +154,11 @@ struct Narrow {
                                    // each); a genome row is 16 * 4 * kVecs bases
   static constexpr int kOccShift = 6;  // log2 of the BWT bases per Occ row
 
-  // Occ of base c at the row start
+  // Occ of base c (at run time) at the row start, and of all four
   __device__ static int occ(const uint4* v, int c) { return (int)sel4(v[0], c); }
+  __device__ static Occ4<int> occ_all(const uint4* v) {
+    return {(int)v[0].x, (int)v[0].y, (int)v[0].z, (int)v[0].w};
+  }
 
   template <class A>
   __device__ static int sample(const A& a, int sad_off, int srow) {
@@ -143,6 +188,12 @@ struct Wide {
 
   __device__ static long long occ(const uint4* v, int c) {
     return (long long)sel4(v[0], c) | ((long long)sel4(v[1], c) << 32);
+  }
+  __device__ static Occ4<long long> occ_all(const uint4* v) {
+    return {(long long)v[0].x | ((long long)v[1].x << 32),
+            (long long)v[0].y | ((long long)v[1].y << 32),
+            (long long)v[0].z | ((long long)v[1].z << 32),
+            (long long)v[0].w | ((long long)v[1].w << 32)};
   }
 
   template <class A>
@@ -185,16 +236,6 @@ struct Flat {
     return reinterpret_cast<const uint32_t*>(row(r));
   }
 
-  // The genome's 32-bit words (16 bases each), from row ref_off on.
-  struct Genome {
-    const uint32_t* __restrict__ ref;
-    __device__ __forceinline__ uint32_t operator[](long long i) const {
-      return __ldg(ref + i);
-    }
-  };
-  __device__ __forceinline__ Genome genome(size_t ref_off) const {
-    return {row_words(ref_off)};
-  }
 };
 
 // The table range-sharded by row: `rows` rows a shard, shard s from
@@ -221,29 +262,12 @@ struct Sharded {
     return reinterpret_cast<const uint32_t*>(row(r));
   }
 
-  // Each word is routed on its own: word i and i + 1 may be in two shards.
-  struct Genome {
-    const unsigned long long* __restrict__ base;
-    unsigned rows;
-    size_t first;  // the table word where the genome starts
-    __device__ __forceinline__ uint32_t operator[](long long i) const {
-      constexpr unsigned kWords = 4 * L::kVecs;  // words a row
-      const size_t w = first + (size_t)i;
-      return __ldg(reinterpret_cast<const uint32_t*>(
-                       shard_row<L>(base, rows, w / kWords)) +
-                   (w % kWords));
-    }
-  };
-  __device__ __forceinline__ Genome genome(size_t ref_off) const {
-    return {base, rows, ref_off * 4 * L::kVecs};
-  }
 };
 
 template <class A>
-__device__ __forceinline__ void load_row(
-    const A& a, typename A::Layout::I row,
-    uint4 (&v)[A::Layout::kVecs]) {
-  const uint4* r = a.row((size_t)row);
+__device__ __forceinline__ void load_row(const A& a, size_t row,
+                                         uint4 (&v)[A::Layout::kVecs]) {
+  const uint4* r = a.row(row);
 #pragma unroll
   for (int j = 0; j < A::Layout::kVecs; ++j) v[j] = __ldg(r + j);
 }
@@ -256,96 +280,167 @@ __device__ __forceinline__ uint32_t bwt_word(const uint4 (&v)[L::kVecs],
     return sel4(v[1], j & 3);
   } else {
     // a select, not a runtime index, keeps the row in registers
-    return (j & 4) ? sel4(v[3], j & 3) : sel4(v[2], j & 3);
+    return selw(j & 4, sel4(v[3], j & 3), sel4(v[2], j & 3));
   }
+}
+
+// The even bits of BWT word j (bases 16 j .. 16 j + 15, top first) that
+// stand for its bases among the row's first `take`.
+__device__ __forceinline__ uint32_t word_mask(int j, int take) {
+  const int tw = min(max(take - 16 * j, 0), 16);
+  return tw == 0 ? 0u : (0xFFFFFFFFu << (32 - 2 * tw)) & 0x55555555u;
+}
+
+// Bases of word x = w ^ (base * 0x55555555) equal to that base, under m.
+__device__ __forceinline__ int count_eq(uint32_t x, uint32_t m) {
+  return __popc(~(x | (x >> 1)) & m);
 }
 
 // Bases equal to the pattern's base (pat = base * 0x55555555) among the
 // first `take` (1..64 narrow, 1..128 wide) bases of the row's BWT words.
+// The words are read as the vectors' members: an index known only after
+// unrolling would go through sel4.
 template <class L>
 __device__ __forceinline__ int count_base(const uint4 (&v)[L::kVecs],
                                           int take, uint32_t pat) {
   int cnt = 0;
 #pragma unroll
-  for (int j = 0; j < 2 * L::kVecs; ++j) {
-    const int tw = min(max(take - 16 * j, 0), 16);
-    const uint32_t mask = tw == 0 ? 0u : 0xFFFFFFFFu << (32 - 2 * tw);
-    const uint32_t x = sel4(v[L::kVecs / 2 + (j >> 2)], j & 3) ^ pat;
-    cnt += __popc(~(x | (x >> 1)) & 0x55555555u & mask);
+  for (int q = 0; q < L::kVecs / 2; ++q) {
+    const uint4& b = v[L::kVecs / 2 + q];
+    cnt += count_eq(b.x ^ pat, word_mask(4 * q, take)) +
+           count_eq(b.y ^ pat, word_mask(4 * q + 1, take)) +
+           count_eq(b.z ^ pat, word_mask(4 * q + 2, take)) +
+           count_eq(b.w ^ pat, word_mask(4 * q + 3, take));
   }
   return cnt;
 }
 
-// Occ of all four bases in stored BWT [0, kk] (kk already primary-adjusted).
-template <class A, class L = typename A::Layout>
-__device__ __forceinline__ void occ4(const A& a, typename L::I kk,
-                                     typename L::I o[4]) {
-  uint4 v[L::kVecs];
-  load_row(a, kk >> L::kOccShift, v);
+// One of four values by a runtime index, as a chain of selects: values kept
+// in registers are never indexed at run time (an indexed array goes to the
+// stack, and every access to it to local memory).
+template <class T>
+__device__ __forceinline__ T pick4(int c, T v0, T v1, T v2, T v3) {
+  return c == 0 ? v0 : c == 1 ? v1 : c == 2 ? v2 : v3;
+}
+
+// L2[i], i = 0..4 at run time
+template <class I>
+__device__ __forceinline__ I l2(const FmParams<I>& p, int i) {
+  return i == 4 ? p.L2[4] : pick4(i, p.L2[0], p.L2[1], p.L2[2], p.L2[3]);
+}
+
+// Bases 1, 2 and 3 of BWT word w under m, added to n1, n2 and n3: the
+// word's high bits (w >> 1) and low bits (w) at the even positions.
+__device__ __forceinline__ void count123(uint32_t w, uint32_t m, int& n1,
+                                         int& n2, int& n3) {
+  const uint32_t hi = w >> 1;
+  n1 += __popc(~hi & w & m);
+  n2 += __popc(hi & ~w & m);
+  n3 += __popc(hi & w & m);
+}
+
+// Occ of all four bases in stored BWT [0, kk] (kk already primary-adjusted),
+// from kk's loaded Occ row, in one pass over its BWT words; base 0 is the
+// rest.
+template <class L>
+__device__ __forceinline__ Occ4<typename L::I> occ4_row(
+    const uint4 (&v)[L::kVecs], typename L::I kk) {
   const int take = (int)(kk & ((1 << L::kOccShift) - 1)) + 1;
-  const int c1 = count_base<L>(v, take, 0x55555555u);
-  const int c2 = count_base<L>(v, take, 0xAAAAAAAAu);
-  const int c3 = count_base<L>(v, take, 0xFFFFFFFFu);
-  o[0] = L::occ(v, 0) + take - c1 - c2 - c3;
-  o[1] = L::occ(v, 1) + c1;
-  o[2] = L::occ(v, 2) + c2;
-  o[3] = L::occ(v, 3) + c3;
+  int n1 = 0, n2 = 0, n3 = 0;
+#pragma unroll
+  for (int q = 0; q < L::kVecs / 2; ++q) {
+    const uint4& b = v[L::kVecs / 2 + q];
+    count123(b.x, word_mask(4 * q, take), n1, n2, n3);
+    count123(b.y, word_mask(4 * q + 1, take), n1, n2, n3);
+    count123(b.z, word_mask(4 * q + 2, take), n1, n2, n3);
+    count123(b.w, word_mask(4 * q + 3, take), n1, n2, n3);
+  }
+  const Occ4<typename L::I> o = L::occ_all(v);
+  return {o.c0 + take - n1 - n2 - n3, o.c1 + n1, o.c2 + n2, o.c3 + n3};
+}
+
+// The stored-BWT position of an Occ query at row q: primary-adjusted and
+// clamped at 0.
+template <class I>
+__device__ __forceinline__ I occ_pos(const FmParams<I>& p, I q) {
+  return max(q - (q >= p.primary), (I)0);
 }
 
 // One backward-search extension (BWT_Search) of the bidirectional interval
-// (x0, x1, x2) by the base whose complement is ci. False, and the interval
-// untouched, when the extended pattern does not occur.
+// (x0, x1, x2) by the base whose complement is ci, from the Occ rows of
+// occ_pos(x1 - 1) (va) and occ_pos(x1 - 1 + x2) (vb). False, and the
+// interval untouched, when the extended pattern does not occur.
+template <class L>
+__device__ __forceinline__ bool extend_rows(
+    const FmParams<typename L::I>& p, const uint4 (&va)[L::kVecs],
+    const uint4 (&vb)[L::kVecs], int ci, typename L::I& x0,
+    typename L::I& x1, typename L::I& x2) {
+  using I = typename L::I;
+  const Occ4<I> tk = occ4_row<L>(va, occ_pos(p, x1 - 1));
+  const Occ4<I> tl = occ4_row<L>(vb, occ_pos(p, x1 - 1 + x2));
+  const I w1 = tl.c1 - tk.c1, w2 = tl.c2 - tk.c2, w3 = tl.c3 - tk.c3;
+  const I wi = pick4(ci, tl.c0 - tk.c0, w1, w2, w3);
+  if (wi <= 0) return false;
+  // the new start: the old one, past the primary row, past the bases above
+  x0 += (I)(x1 <= p.primary && x1 + x2 - 1 >= p.primary) +
+        (ci < 1 ? w1 : (I)0) + (ci < 2 ? w2 : (I)0) + (ci < 3 ? w3 : (I)0);
+  x1 = l2(p, ci) + 1 + pick4(ci, tk.c0, tk.c1, tk.c2, tk.c3);
+  x2 = wi;
+  return true;
+}
+
+// The same, loading the two Occ rows (the K-mer table build, the MEM walk).
 template <class A, class L = typename A::Layout>
 __device__ __forceinline__ bool extend(const A& a,
                                        const FmParams<typename L::I>& p,
                                        int ci, typename L::I& x0,
                                        typename L::I& x1, typename L::I& x2) {
-  using I = typename L::I;
-  const I q1 = x1 - 1, q2 = x1 - 1 + x2;
-  I tk[4], tl[4];
-  occ4(a, max(q1 - (q1 >= p.primary), (I)0), tk);
-  occ4(a, max(q2 - (q2 >= p.primary), (I)0), tl);
-  const I wi = tl[ci] - tk[ci];
-  if (wi <= 0) return false;
-  I start = x0 + (x1 <= p.primary && x1 + x2 - 1 >= p.primary);
-  for (int b = 3; b > ci; --b) start += tl[b] - tk[b];
-  x0 = start;
-  x1 = p.L2[ci] + 1 + tk[ci];
-  x2 = wi;
-  return true;
+  uint4 va[L::kVecs], vb[L::kVecs];
+  load_row(a, (size_t)(occ_pos(p, x1 - 1) >> L::kOccShift), va);
+  load_row(a, (size_t)(occ_pos(p, x1 - 1 + x2) >> L::kOccShift), vb);
+  return extend_rows<L>(p, va, vb, ci, x0, x1, x2);
 }
 
-// k % sa_intv and k / sa_intv; the wide kernels shift and mask when the
-// interval is a power of two (64-bit division is a long software routine).
+// k % sa_intv and k / sa_intv of a row k >= 0; a mask and a shift when the
+// interval is a power of two, as it is in every index the builder writes
+// (a division by a run-time divisor is a software routine, a long one at
+// 64 bits).
 template <class I>
 __device__ __forceinline__ I sa_rem(const FmParams<I>& p, I k) {
-  if (sizeof(I) == 8 && (p.sa_intv & (p.sa_intv - 1)) == 0)
-    return k & (p.sa_intv - 1);
+  if ((p.sa_intv & (p.sa_intv - 1)) == 0) return k & (p.sa_intv - 1);
   return k % p.sa_intv;
 }
 
 template <class I>
 __device__ __forceinline__ I sa_div(const FmParams<I>& p, I k) {
-  if (sizeof(I) == 8 && (p.sa_intv & (p.sa_intv - 1)) == 0)
+  if ((p.sa_intv & (p.sa_intv - 1)) == 0)
     return k >> (__ffsll((long long)p.sa_intv) - 1);
   return k / p.sa_intv;
 }
 
-// One LF step of bwt_sa (bwt_invPsi): the row of the suffix one text
-// position earlier. Row `primary` maps to 0.
+// One LF step of bwt_sa (bwt_invPsi) from row k != primary: the row of the
+// suffix one text position earlier, from the loaded Occ row of
+// k - (k > primary).
+template <class L>
+__device__ __forceinline__ typename L::I lf_row(
+    const FmParams<typename L::I>& p, const uint4 (&v)[L::kVecs],
+    typename L::I k) {
+  using I = typename L::I;
+  const I kk = k - (k > p.primary);
+  const int lo = (int)(kk & ((1 << L::kOccShift) - 1));
+  const int c = (bwt_word<L>(v, lo >> 4) >> (2 * (15 - (lo & 15)))) & 3;
+  return l2(p, c) + L::occ(v, c) +
+         count_base<L>(v, lo + 1, (uint32_t)c * 0x55555555u);
+}
+
+// The same, loading the row. Row `primary` maps to 0.
 template <class A, class L = typename A::Layout>
 __device__ __forceinline__ typename L::I lf_step(
     const A& a, const FmParams<typename L::I>& p, typename L::I k) {
-  using I = typename L::I;
   if (k == p.primary) return 0;
-  const I kk = k - (k > p.primary);
   uint4 v[L::kVecs];
-  load_row(a, kk >> L::kOccShift, v);
-  const int lo = (int)(kk & ((1 << L::kOccShift) - 1));
-  const int c = (bwt_word<L>(v, lo >> 4) >> (2 * (15 - (lo & 15)))) & 3;
-  const I occ = L::occ(v, c) + count_base<L>(v, lo + 1,
-                                              (uint32_t)c * 0x55555555u);
-  return p.L2[c] + occ;
+  load_row(a, (size_t)((k - (k > p.primary)) >> L::kOccShift), v);
+  return lf_row<L>(p, v, k);
 }
 
 template <class A, class L = typename A::Layout>
@@ -366,6 +461,31 @@ __device__ __forceinline__ typename L::I locate_row(
     ++steps;
   }
   return steps + sa_sample(a, p, k);
+}
+
+// Word w (0 .. 4 kVecs - 1, at run time) of a loaded row, by selects.
+template <class L>
+__device__ __forceinline__ uint32_t row_word(const uint4 (&v)[L::kVecs],
+                                             int w) {
+  uint32_t r = sel4(v[0], w & 3);
+#pragma unroll
+  for (int j = 1; j < L::kVecs; ++j)
+    r = selw((w >> 2) == j, sel4(v[j], w & 3), r);
+  return r;
+}
+
+// SA sample s of a loaded sample row (the row of s / 8): int32 narrow, a
+// [lo x8 | hi x8] pair wide.
+template <class L>
+__device__ __forceinline__ typename L::I sample_in_row(
+    const uint4 (&v)[L::kVecs], typename L::I s) {
+  const int w = (int)(s & 7);
+  if constexpr (L::kVecs == 2) {
+    return (int)row_word<L>(v, w);
+  } else {
+    return (long long)row_word<L>(v, w) |
+           ((long long)row_word<L>(v, 8 + w) << 32);
+  }
 }
 
 __device__ __forceinline__ int base_at(const uint32_t* codes, int i) {
@@ -394,17 +514,27 @@ __device__ __forceinline__ uint32_t n_window(const uint32_t* nmask,
   return nb;
 }
 
-// Bases of the read from `cur` that equal the genome from `goff`, up to 16,
-// capped at the ends of read and genome. N bases never match.
-template <class G, class I>
-__device__ __forceinline__ int compare16(const G& ref, const uint32_t* codes,
-                                         const uint32_t* nmask, int words,
-                                         int rlen, I seq_len, int cur,
-                                         I goff) {
-  const I gi = goff >> 4;
-  const int ga = (int)(goff & 15) * 2;
-  uint32_t gw = ref[gi];
-  if (ga) gw = (gw << ga) | (ref[gi + 1] >> (32 - ga));
+// The K-mer of the read at pos holds no N and ends inside the read.
+__device__ __forceinline__ bool kmer_ok(const uint32_t* nmask, int words,
+                                        int rlen, int pos, int k) {
+  return (n_window(nmask, words / 2, pos) >> (32 - k)) == 0 &&
+         pos + k <= rlen;
+}
+
+// The K-mer of the read at pos as a K-mer table key (first base on top).
+__device__ __forceinline__ uint32_t kmer_key(const uint32_t* codes,
+                                             int words, int pos, int k) {
+  return code_window(codes, words, pos) >> (32 - 2 * k);
+}
+
+// Bases of the read from `cur` that equal the genome window gw (the 16
+// bases from goff, top first), up to 16, capped at the ends of read and
+// genome. N bases never match.
+template <class I>
+__device__ __forceinline__ int match16(uint32_t gw, const uint32_t* codes,
+                                       const uint32_t* nmask, int words,
+                                       int rlen, I seq_len, int cur,
+                                       I goff) {
   const uint32_t rw = code_window(codes, words, cur);
   const uint32_t nb = n_window(nmask, words / 2, cur);
   // the window's 16 N bits, spread to 2 bits per base like the codes
@@ -419,109 +549,305 @@ __device__ __forceinline__ int compare16(const G& ref, const uint32_t* codes,
   return min(m16, (int)max(avail, (I)0));
 }
 
+// Where a lane of the seed scan is: starting a walk at pos, extending it,
+// locating its one occurrence, comparing the read with the genome there.
+enum : int { kStart, kExtend, kLocate, kCompare, kDone };
+
+// The walk from pos ends with `length` bases: record it when accepted and
+// jump past it, else advance by one; `last` ends the scan.
+template <class I>
+__device__ __forceinline__ void end_walk(I* o, int S, int& n, int& pos,
+                                         int& mode, int length, bool acc,
+                                         I k0, I freq, bool last) {
+  if (acc) {
+    if (n < S) {
+      o[1 + n] = pos;
+      o[1 + S + n] = length;
+      o[1 + 2 * S + n] = k0;
+      o[1 + 3 * S + n] = freq;
+    }
+    ++n;
+    pos += length;
+  } else {
+    ++pos;
+  }
+  mode = last ? kDone : kStart;
+}
+
+// Blocks of the seed scan an SM must hold at once: the main path's 65,536
+// reads make 512 blocks, 3.9 an SM, so that every block is resident from
+// the start (a second wave of blocks would add its own tail). This caps a
+// thread at 128 registers.
+constexpr int kScanBlocksPerSm = 4;
+
 // The reference seeding scan (IdentifySeedPairs, AlignmentCandidates.cpp):
 // from each scan position take the forward maximal exact match; accept it
 // when its length is >= 16 and it occurs <= max_dup times, then jump past
 // it, else advance by one. The scan stops at rlen - 13. A match whose
-// interval narrows to one occurrence leaves backward search: the thread
-// locates that occurrence and finishes the match by comparing the read
-// with the genome, 16 bases at a time; such a seed has freq -1 and its
-// genome position in k0.
+// interval narrows to one occurrence leaves backward search: its genome
+// position is located and the match finished by comparing the read with
+// the genome, 16 bases at a time; such a seed has freq -1 and its genome
+// position in k0.
 //
 // With the LUT (kLut), a walk starts from the table entry of the K-mer at
 // pos, K bases in; an entry that is dead, or a K-mer window holding an N
 // or running past the read, advances pos by one: that walk would have died
 // before K < 16 bases, a rejected seed.
 //
+// One thread per read, as a state machine (kStart .. kDone) that takes one
+// step per turn of its loop. A step first settles every transition that
+// reads no memory (walk ends, N bases, a K-mer entry loaded ahead), then
+// issues every load the step needs at once, then applies them. Whatever
+// mode each lane of a warp is in, the warp waits for one load latency a
+// step, and the extension (the step's costliest arithmetic) has one place
+// in the loop, which a lane extending a walk and a lane extending beside
+// its locate share. Three shortcuts change no output bit:
+//
+// - a match narrowed to one occurrence keeps extending beside its locate,
+//   one base a step: an occurrence's extension and its compare with the
+//   genome agree base for base (the table's genome rows are the indexed
+//   text), so a match that stops short of 16 bases is rejected at once
+//   instead of after its locate, and one that outlasts the locate hands
+//   the compare a later start;
+// - the scan stops at rlen - 15, not rlen - 13: a walk from further on is
+//   shorter than 16 bases;
+// - a walk that is rejected after extending to the read's end with x2 >= 2
+//   ends the scan: every later walk is a suffix of it, occurs at least x2
+//   times, never narrows to one occurrence, and is rejected too.
+//
+// The block's reads are staged in shared memory with one coalesced copy
+// (`staged`, when they fit), so that a step's only global loads are its
+// table rows and K-mer entries; the K-mer entry of pos + 1 is loaded with
+// a walk's first step, so that a rejected walk's successor starts without
+// a load of its own.
+//
+// A step loads at most three table rows: `vo`, the LF row or the SA sample
+// row of a locate; `ve` and `vf`, the two Occ rows of an extension or the
+// two genome rows of a compare.
+//
 // buf row: [codes, 16 per word | N bits, 32 per word | rlen]
 // out row: [n | rpos x S | len x S | k0 x S | freq x S], int narrow,
 // long long wide
 template <class A, bool kLut>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kScanBlocksPerSm)
 seed_scan_kernel(A a, FmParams<typename A::Layout::I> p,
                  const void* __restrict__ lut, int lut_k,
                  const uint32_t* __restrict__ buf, int R, int words, int S,
-                 typename A::Layout::I* __restrict__ out) {
+                 bool staged, typename A::Layout::I* __restrict__ out) {
   using L = typename A::Layout;
   using I = typename L::I;
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
+  constexpr int kRowWords = 4 * L::kVecs;
+  extern __shared__ uint32_t sreads[];
   const int stride = words + words / 2 + 1;
-  const uint32_t* codes = buf + (size_t)r * stride;
+  const int r0 = blockIdx.x * blockDim.x;
+  if (staged) {
+    const int nw = min((int)blockDim.x, R - r0) * stride;
+    const uint32_t* src = buf + (size_t)r0 * stride;
+    for (int i = threadIdx.x; i < nw; i += blockDim.x) sreads[i] = __ldg(src + i);
+    __syncthreads();
+  }
+  const int r = r0 + threadIdx.x;
+  if (r >= R) return;
+  const uint32_t* codes =
+      staged ? sreads + threadIdx.x * stride : buf + (size_t)r * stride;
   const uint32_t* nmask = codes + words;
   const int rlen = (int)codes[stride - 1];
-  const auto ref = a.genome((size_t)p.ref_off);
   I* o = out + (size_t)r * (1 + 4 * S);
   for (int s = 1; s <= 4 * S; ++s) o[s] = 0;
 
-  const int end_pos = max(rlen - 13, 0);
-  int n = 0;
-  int pos = 0;
-  while (pos < end_pos) {
-    I x0, x1, x2;
-    int cur;
-    if (kLut) {
-      x2 = 0;
-      if ((n_window(nmask, words / 2, pos) >> (32 - lut_k)) == 0 &&
-          pos + lut_k <= rlen)
-        L::lut_load(lut, code_window(codes, words, pos) >> (32 - 2 * lut_k),
-                    x0, x1, x2);
-      if (x2 == 0) {
-        ++pos;
+  const int end_pos = max(rlen - 15, 0);
+  int n = 0, pos = 0, cur = 0, mode = kStart;
+  bool ext = false;  // a located match still extends beside its locate
+  I x0 = 0, x1 = 0, x2 = 0, lk = 0, steps = 0, gbase = 0;
+  int npos = -1;           // the K-mer entry (nx0, nx1, nx2) is pos npos's
+  bool want_next = false;  // load the entry of pos + 1 with the next step
+  I nx0 = 0, nx1 = 0, nx2 = 0;
+
+  for (;;) {
+    // 1. settle the transitions that read no memory, up to this step's loads
+    size_t ro = 0, re = 0, rf = 0;
+    bool ldo = false, lde = false, ldf = false, ldk = false, ldn = false;
+    bool sampled = false;
+    uint32_t key = 0, nkey = 0;
+    while (mode != kDone) {
+      if (mode == kStart) {
+        if (pos >= end_pos) {
+          mode = kDone;
+          break;
+        }
+        if constexpr (kLut) {
+          if (npos == pos) {  // loaded ahead
+            npos = -1;
+            if (nx2 == 0) {
+              ++pos;
+              continue;
+            }
+            x0 = nx0;
+            x1 = nx1;
+            x2 = nx2;
+            cur = pos + lut_k;
+            want_next = true;
+            mode = kExtend;
+            continue;
+          }
+          if (!kmer_ok(nmask, words, rlen, pos, lut_k)) {
+            ++pos;
+            continue;
+          }
+          key = kmer_key(codes, words, pos, lut_k);
+          ldk = true;
+          break;
+        } else {
+          if (is_n(nmask, pos)) {
+            ++pos;
+            continue;
+          }
+          const int c = base_at(codes, pos);
+          x0 = l2(p, c) + 1;
+          x1 = l2(p, 3 - c) + 1;
+          x2 = l2(p, c + 1) - l2(p, c);
+          cur = pos + 1;
+          mode = kExtend;
+          continue;
+        }
+      }
+      if (mode == kExtend) {
+        if (x2 == 1 && cur < rlen) {  // one occurrence: locate it
+          mode = kLocate;
+          lk = x0;
+          steps = 0;
+          ext = true;
+          continue;
+        }
+        if (cur < rlen && !is_n(nmask, cur)) {
+          re = (size_t)(occ_pos(p, x1 - 1) >> L::kOccShift);
+          rf = (size_t)(occ_pos(p, x1 - 1 + x2) >> L::kOccShift);
+          lde = true;
+          break;
+        }
+        // the walk reached the read's end or an N
+        const int length = cur - pos;
+        const bool acc = x2 <= p.max_dup && length >= 16;
+        end_walk(o, S, n, pos, mode, length, acc, x0, x2,
+                 !acc && cur == rlen && x2 >= 2);
         continue;
       }
-      cur = pos + lut_k;
-    } else {
-      if (is_n(nmask, pos)) {
-        ++pos;
-        continue;
-      }
-      const int c = base_at(codes, pos);
-      x0 = p.L2[c] + 1;
-      x1 = p.L2[3 - c] + 1;
-      x2 = p.L2[c + 1] - p.L2[c];
-      cur = pos + 1;
-    }
-    int length;
-    I k0, freq;
-    bool acc;
-    for (;;) {
-      if (x2 == 1 && cur < rlen) {
-        const I gbase = locate_row(a, p, x0) - pos;
-        int m;
-        do {
-          m = compare16(ref, codes, nmask, words, rlen, p.seq_len, cur,
-                        gbase + cur);
-          cur += m;
-        } while (m == 16 && cur < rlen && gbase + cur < p.seq_len);
-        length = cur - pos;
-        acc = length >= 16;
-        k0 = gbase + pos;
-        freq = -1;
+      if (mode == kLocate) {
+        // the extension side stops at the read's end or an N: the match
+        // ends there, and one shorter than 16 bases is rejected now
+        if (ext && !(cur < rlen && !is_n(nmask, cur))) ext = false;
+        if (!ext && cur - pos < 16) {
+          end_walk(o, S, n, pos, mode, cur - pos, false, (I)0, (I)0, false);
+          continue;
+        }
+        sampled = sa_rem(p, lk) == 0 || steps > p.seq_len;
+        if (!sampled && lk == p.primary) {
+          lk = 0;
+          ++steps;
+          continue;
+        }
+        ro = (size_t)(sampled ? p.sad_off + (sa_div(p, lk) >> 3)
+                              : (lk - (lk > p.primary)) >> L::kOccShift);
+        ldo = true;
+        if (ext) {
+          re = (size_t)(occ_pos(p, x1 - 1) >> L::kOccShift);
+          rf = (size_t)(occ_pos(p, x1 - 1 + x2) >> L::kOccShift);
+          lde = true;
+        }
         break;
       }
-      if (cur < rlen && !is_n(nmask, cur) &&
-          extend(a, p, 3 - base_at(codes, cur), x0, x1, x2)) {
-        ++cur;
-        continue;
+      // kCompare
+      if (cur < rlen && gbase + cur < p.seq_len) {
+        const I gi = (gbase + cur) >> 4;
+        re = (size_t)(p.ref_off + gi / kRowWords);
+        rf = (size_t)(p.ref_off + (gi + 1) / kRowWords);
+        lde = true;
+        break;
       }
-      length = cur - pos;
-      acc = x2 <= p.max_dup && length >= 16;
-      k0 = x0;
-      freq = x2;
-      break;
+      end_walk(o, S, n, pos, mode, cur - pos, cur - pos >= 16, gbase + pos,
+               (I)-1, false);
     }
-    if (acc) {
-      if (n < S) {
-        o[1 + n] = pos;
-        o[1 + S + n] = length;
-        o[1 + 2 * S + n] = k0;
-        o[1 + 3 * S + n] = freq;
+    if (mode == kDone) break;
+    if constexpr (kLut) {
+      // with a walk's first load, the K-mer entry of pos + 1
+      if (want_next && (mode == kExtend || mode == kLocate)) {
+        want_next = false;
+        npos = pos + 1;
+        nx2 = 0;  // dead unless loaded
+        if (npos < end_pos && kmer_ok(nmask, words, rlen, npos, lut_k)) {
+          nkey = kmer_key(codes, words, npos, lut_k);
+          ldn = true;
+        }
       }
-      ++n;
-      pos += length;
-    } else {
-      ++pos;
+    }
+    ldf = lde && rf != re;  // a second row equal to the first is not loaded
+
+    // 2. issue every load of the step at once
+    uint4 vo[L::kVecs], ve[L::kVecs], vf[L::kVecs];
+    I e0 = 0, e1 = 0, e2 = 0;
+    if (ldo) load_row(a, ro, vo);
+    if (lde) load_row(a, re, ve);
+    if (ldf) load_row(a, rf, vf);
+    if constexpr (kLut) {
+      if (ldk) L::lut_load(lut, key, e0, e1, e2);
+      if (ldn) L::lut_load(lut, nkey, nx0, nx1, nx2);
+    }
+    if (lde && !ldf) {
+#pragma unroll
+      for (int j = 0; j < L::kVecs; ++j) vf[j] = ve[j];
+    }
+
+    // 3. apply them
+    if (mode == kStart) {  // the K-mer entry of pos (kLut)
+      if (e2 == 0) {
+        ++pos;
+      } else {
+        x0 = e0;
+        x1 = e1;
+        x2 = e2;
+        cur = pos + lut_k;
+        want_next = true;
+        mode = kExtend;
+      }
+      continue;
+    }
+    if (mode == kExtend || (mode == kLocate && ext)) {  // one extension
+      if (extend_rows<L>(p, ve, vf, 3 - base_at(codes, cur), x0, x1, x2)) {
+        ++cur;
+      } else if (mode == kExtend) {
+        const int length = cur - pos;
+        end_walk(o, S, n, pos, mode, length,
+                 x2 <= p.max_dup && length >= 16, x0, x2, false);
+      } else {
+        ext = false;  // the match ends at cur
+      }
+    }
+    if (mode == kLocate) {
+      if (!sampled) {
+        lk = lf_row<L>(p, vo, lk);
+        ++steps;
+      } else {
+        gbase = steps + sample_in_row<L>(vo, sa_div(p, lk)) - pos;
+        if (ext)  // compare the rest, 16 bases a step
+          mode = kCompare;
+        else
+          end_walk(o, S, n, pos, mode, cur - pos, cur - pos >= 16,
+                   gbase + pos, (I)-1, false);
+      }
+    } else if (mode == kCompare) {
+      const I goff = gbase + cur;
+      const I gi = goff >> 4;
+      const int ga = (int)(goff & 15) * 2;
+      uint32_t gw = row_word<L>(ve, (int)(gi % kRowWords));
+      if (ga)
+        gw = (gw << ga) |
+             (row_word<L>(vf, (int)((gi + 1) % kRowWords)) >> (32 - ga));
+      const int m =
+          match16(gw, codes, nmask, words, rlen, p.seq_len, cur, goff);
+      cur += m;
+      if (m < 16 || cur >= rlen || gbase + cur >= p.seq_len)
+        end_walk(o, S, n, pos, mode, cur - pos, cur - pos >= 16, gbase + pos,
+                 (I)-1, false);
     }
   }
   o[0] = n;
@@ -549,7 +875,7 @@ lut_build_kernel(A a, FmParams<typename A::Layout::I> p, int K,
   const long long key = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (key >= (1LL << (2 * K))) return;
   const int c = (int)(key >> (2 * (K - 1))) & 3;
-  I x0 = p.L2[c] + 1, x1 = p.L2[3 - c] + 1, x2 = p.L2[c + 1] - p.L2[c];
+  I x0 = l2(p, c) + 1, x1 = l2(p, 3 - c) + 1, x2 = l2(p, c + 1) - l2(p, c);
   for (int i = 1; i < K; ++i) {
     const int b = (int)(key >> (2 * (K - 1 - i))) & 3;
     if (x2 == 0 || !extend(a, p, 3 - b, x0, x1, x2)) {
@@ -588,7 +914,8 @@ mem_walks_kernel(A a, FmParams<typename A::Layout::I> p,
   const uint8_t* c = chars + (size_t)w * Lc;
   const uint8_t* v = valid + (size_t)w * Lc;
   const int c0 = min((int)c[0], 3);
-  I x0 = p.L2[c0] + 1, x1 = p.L2[3 - c0] + 1, x2 = p.L2[c0 + 1] - p.L2[c0];
+  I x0 = l2(p, c0) + 1, x1 = l2(p, 3 - c0) + 1,
+    x2 = l2(p, c0 + 1) - l2(p, c0);
   int len = 0;
   if (v[0] && c[0] <= 3) {
     len = 1;
@@ -611,12 +938,16 @@ int launch_seed_scan(A a, const typename A::Layout::I* params,
   const auto s = static_cast<cudaStream_t>(stream);
   const auto b = static_cast<const uint32_t*>(buf);
   const auto o = static_cast<typename A::Layout::I*>(out);
+  // a block's reads go to shared memory when they fit the default 48 KB
+  // (up to ~1,000 bases a read); longer ones are read in place
+  const size_t smem = (size_t)kThreads * (words + words / 2 + 1) * 4;
+  const bool staged = smem <= 48 * 1024;
   if (lut_k > 0)
-    seed_scan_kernel<A, true><<<grid, kThreads, 0, s>>>(
-        a, make_params(params), lut, lut_k, b, R, words, S, o);
+    seed_scan_kernel<A, true><<<grid, kThreads, staged ? smem : 0, s>>>(
+        a, make_params(params), lut, lut_k, b, R, words, S, staged, o);
   else
-    seed_scan_kernel<A, false><<<grid, kThreads, 0, s>>>(
-        a, make_params(params), nullptr, 0, b, R, words, S, o);
+    seed_scan_kernel<A, false><<<grid, kThreads, staged ? smem : 0, s>>>(
+        a, make_params(params), nullptr, 0, b, R, words, S, staged, o);
   return (int)cudaGetLastError();
 }
 

@@ -34,8 +34,7 @@ import time
 import numpy as np
 import torch
 
-from dart_tpu.index import load_index
-
+from .index import load_index
 from .ops.fm_torch import FMIndexTorch
 
 TOY = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -218,11 +217,9 @@ def overflow_proof(n_devices: int, index_shards: int, device="cuda",
     device is given), and a whole ``DartAligner`` run over 256 reads
     (seed, chain, finalize, SAM and junctions) is byte-equal between the
     sharded and the replicated engine."""
-    from dart_tpu.aligner import DartAligner
-    from dart_tpu.config import DartConfig
-    from dart_tpu.index import build_index
-
-    from .aligner import default_lut_k
+    from .aligner import DartAligner, default_lut_k
+    from .config import DartConfig
+    from .index import build_index
     from .parallel.mesh import ShardedFMIndexTorch, make_mesh
 
     work = work or os.path.join(tempfile.gettempdir(),
@@ -339,7 +336,7 @@ def giant_index() -> str | None:
 
 def _read_fq_codes(path: str, n: int, L: int = 100):
     """The first n reads of a FASTQ file as (codes (n, L) uint8, lens)."""
-    from dart_tpu.constants import NT4_TABLE
+    from .constants import NT4_TABLE
 
     codes = np.full((n, L), 4, dtype=np.uint8)
     lens = np.zeros(n, dtype=np.int32)

@@ -23,7 +23,7 @@ import time
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
 BUILD_DIR = os.path.join(PKG, "_build")
-SOURCES = ("fm_kernels.cu", "nw_kernels.cu")
+SOURCES = ("fm_kernels.cu", "nw_kernels.cu", "probe.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -41,10 +41,10 @@ def nvcc_path() -> str:
     return path
 
 
-def lib_path() -> str:
+def lib_path(csrc: str = CSRC, sources=SOURCES) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        with open(os.path.join(CSRC, name), "rb") as f:
+    for name in sources:
+        with open(os.path.join(csrc, name), "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libdart_fm_{h.hexdigest()[:16]}.so")
 
@@ -64,23 +64,24 @@ def _run_all(cmds: list[list[str]]) -> None:
         raise RuntimeError("nvcc failed:\n" + "\n".join(fails))
 
 
-def build() -> tuple[str, float]:
-    """Compile the sources unless this exact build exists. Returns the
-    library's path and the seconds spent compiling (0 if reused)."""
-    lib = lib_path()
+def build(csrc: str = CSRC, sources=SOURCES) -> tuple[str, float]:
+    """Compile the sources (default: the package's) unless this exact
+    build exists. Returns the library's path and the seconds spent
+    compiling (0 if reused)."""
+    lib = lib_path(csrc, sources)
     with _LOCK:
         if os.path.exists(lib):
             return lib, 0.0
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{lib}.{os.getpid()}.tmp"
-        objs = [f"{tmp}.{s}.o" for s in SOURCES]
+        objs = [f"{tmp}.{s}.o" for s in sources]
         nvcc = nvcc_path()
         t0 = time.perf_counter()
         try:
             # one compiler process per source, all running at once
             _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj,
-                       os.path.join(CSRC, src)]
-                      for src, obj in zip(SOURCES, objs)])
+                       os.path.join(csrc, src)]
+                      for src, obj in zip(sources, objs)])
             _run_all([[nvcc, "-shared", "-o", tmp, *objs]])
             os.replace(tmp, lib)
         finally:
@@ -90,13 +91,33 @@ def build() -> tuple[str, float]:
         return lib, time.perf_counter() - t0
 
 
+def ptxas_report(path: str) -> str:
+    """What ``nvcc -Xptxas -v`` says of the source at ``path``: each
+    kernel's registers, stack frame, spills and shared memory."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    obj = os.path.join(BUILD_DIR, f"ptxas.{os.getpid()}.o")
+    try:
+        out = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v",
+                              "-c", "-o", obj, path], capture_output=True,
+                             text=True, check=True)
+    finally:
+        if os.path.exists(obj):
+            os.remove(obj)
+    return out.stdout + out.stderr
+
+
 @functools.cache
 def load() -> ctypes.CDLL:
     """The kernel library, built if needed, with its C entries typed.
     The wide entries take their parameter array and their row count as
     int64: positions and counts there pass 2^31. Each ``dart_fm_*``
     entry has a ``*_sharded`` twin that reads a range-sharded table."""
-    lib = ctypes.CDLL(build()[0])
+    return typed(ctypes.CDLL(build()[0]))
+
+
+def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the argument and result types of each C entry it
+    has set."""
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     ip, lp = ctypes.POINTER(i32), ctypes.POINTER(i64)
     for name, args in {
@@ -116,7 +137,11 @@ def load() -> ctypes.CDLL:
         "dart_nw_planes": [vp, vp, vp, i32, vp, vp],
         # device, peer
         "dart_enable_peer_access": [i32, i32],
+        # buf, steps, start, out, stream
+        "dart_probe_chase": [vp, i64, ctypes.c_uint32, vp, vp],
     }.items():
+        if not hasattr(lib, name):
+            continue
         fn = getattr(lib, name)
         fn.restype = i32
         fn.argtypes = args

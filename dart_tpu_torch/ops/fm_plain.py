@@ -231,7 +231,8 @@ def seed_scan_plain(table: torch.Tensor, L2: torch.Tensor, buf: torch.Tensor,
                     *, words: int, S: int, primary: int, sa_intv: int,
                     sad_off: int, ref_off: int, seq_len: int,
                     max_dup: int, lut: torch.Tensor | None = None,
-                    lut_k: int = 0) -> torch.Tensor:
+                    lut_k: int = 0,
+                    loads: torch.Tensor | None = None) -> torch.Tensor:
     """The reference seeding scan (IdentifySeedPairs), one lane per read.
 
     ``buf`` (R, words + words/2 + 1) int32 holds each read as
@@ -246,6 +247,13 @@ def seed_scan_plain(table: torch.Tensor, L2: torch.Tensor, buf: torch.Tensor,
     the entry is dead if the window holds an N or runs past the read,
     and a dead entry advances ``pos`` by one, as the walk it stands for
     would have (it dies before K < 16 bases, so its seed is rejected).
+
+    ``loads``, an (R, 5) int64 tensor on ``buf``'s device, counts for
+    each read the dependent loads a one-thread-per-read kernel makes,
+    one a step that reads the table, by kind: extension steps (two Occ
+    rows each), locate steps (an LF row or a sample), compare steps (a
+    window's genome words), K-mer table entries read at walk starts;
+    and in its last column the walks started.
     """
     dev = buf.device
     R = buf.shape[0]
@@ -324,12 +332,18 @@ def seed_scan_plain(table: torch.Tensor, L2: torch.Tensor, buf: torch.Tensor,
             i_x2 = torch.where(bad, 0, ent[:, 2])
             init_ok = i_x2 > 0
             jump = lut_k
+            lut_read = initing & ~bad
         else:
             i_x0 = L2[cs] + 1
             i_x1 = L2[3 - cs] + 1
             i_x2 = L2[cs + 1] - L2[cs]
             init_ok = ~amb
             jump = 1
+            lut_read = torch.zeros_like(initing)
+
+        if loads is not None:
+            loads.index_add_(0, ids, torch.stack(
+                [scanning, locating, comparing, lut_read, initing], 1).long())
 
         # the rows each mode reads
         q1 = torch.where(scanning, x1 - 1, torch.where(locating, lk_e, 0))

@@ -1,14 +1,13 @@
 """The port's FM-index engine: seed scan, SA locate and MEM walks on one
 device.
 
-``FMIndexTorch`` serves the engine surface that the shared seeding code
-(``dart_tpu.pipeline.seeding``) calls: ``seed_submit_packed`` /
-``seed_finish`` for packed chunks, ``seed_reads`` for code matrices,
-``locate_submit`` / ``locate_finish`` / ``locate`` for SA rows,
-``_pad_up`` / ``_min_bucket`` for the packer, and ``mem_walks`` for
-the seeding path of engines without the scan automaton
-(``seeding.seed_reads_from_all_walks``). It defines no ``seed_drain``,
-so the shared code takes its JAX-free expansion path.
+``FMIndexTorch`` serves the engine surface that the seeding code
+(``pipeline.seeding``) calls: ``seed_submit_packed`` / ``seed_finish``
+for packed chunks, ``seed_reads`` for code matrices, ``locate_submit``
+/ ``locate_finish`` / ``locate`` for SA rows, ``_pad_up`` /
+``_min_bucket`` for the packer, and ``mem_walks`` for the seeding path
+of engines without the scan automaton
+(``seeding.seed_reads_from_all_walks``).
 
 One class serves both table layouts of ``ops.layout``: narrow (int32
 state, the default below 2^31 text positions) and wide (int64 state,
@@ -289,14 +288,15 @@ class FMIndexTorch:
     def _stream(self) -> int:
         return torch.cuda.current_stream(self.device).cuda_stream
 
-    def plain_seed_scan(self, buf: torch.Tensor, words: int,
-                        S: int) -> torch.Tensor:
-        """The plain PyTorch version of ``seed_scan`` on any device."""
+    def plain_seed_scan(self, buf: torch.Tensor, words: int, S: int,
+                        loads: torch.Tensor | None = None) -> torch.Tensor:
+        """The plain PyTorch version of ``seed_scan`` on any device
+        (``loads`` as ``fm_plain.seed_scan_plain`` takes it)."""
         return seed_scan_plain(
             self.table, self.L2, buf, words=words, S=S, primary=self.primary,
             sa_intv=self.sa_intv, sad_off=self.sad_off, ref_off=self.ref_off,
             seq_len=self.seq_len, max_dup=self.max_dup_num, lut=self.lut,
-            lut_k=self.lut_k)
+            lut_k=self.lut_k, loads=loads)
 
     def plain_locate(self, rows: torch.Tensor) -> torch.Tensor:
         """The plain PyTorch version of ``locate_rows`` on any device."""
@@ -313,7 +313,7 @@ class FMIndexTorch:
         return mem_walks_plain(self.table, self.L2, chars, valid,
                                primary=self.primary)
 
-    # ---- engine surface of the shared seeding code ----
+    # ---- engine surface of the seeding code ----
 
     def seed_reads(self, codes: np.ndarray, rlens: np.ndarray):
         """Seed tables of a (R, L) code matrix (codes > 3 are N).

@@ -26,7 +26,7 @@ which any text length may use and texts of 2^31 or more must) keeps
 - the SA samples, 8 per row as [lo x8 | hi x8].
 
 Its Occ rows and genome words come from the native single-pass packers
-of ``dart_tpu/native/layout.cpp`` (NumPy's broadcasting takes tens of
+of ``native/layout.cpp`` (NumPy's broadcasting takes tens of
 minutes past 2^31 elements); the NumPy bodies are their twins, taken
 when the native library does not load.
 
@@ -109,10 +109,10 @@ def _pack16(codes: np.ndarray) -> np.ndarray:
 
 
 def _native():
-    """dart_tpu's native library (built with g++ at first use), or None
+    """The port's native library (built with g++ at first use), or None
     when it does not load; the wide layout functions then take their
     NumPy twins."""
-    from dart_tpu.native import build as native_build
+    from ..native import build as native_build
 
     return native_build.load()
 

@@ -7,8 +7,8 @@ PyTorch version of ``ops.nw_plain`` for CPU tensors. ``nw_align_batch``
 is the counterpart of ``nw_pallas.nw_align_batch``: it codes a batch
 of fragment pairs of up to 127 bases a side, computes their traceback
 planes on ``device`` in one launch, and walks each pair's planes back
-on the host. Its gapped strings equal ``dart_tpu.ops.nw_numpy.nw_align``
-(the host C++ DP that production calls) for every pair.
+on the host. Its gapped strings equal ``ops.nw_numpy.nw_align`` (the
+host C++ DP that production calls) for every pair.
 """
 
 from __future__ import annotations
@@ -18,8 +18,7 @@ import contextlib
 import numpy as np
 import torch
 
-from dart_tpu.constants import NT4_TABLE
-
+from ..constants import NT4_TABLE
 from . import build
 from .nw_plain import LANES, MAX_LEN, PLANES, nw_plain
 
@@ -117,12 +116,12 @@ def nw_align_batch(pairs: list[tuple[bytes, bytes]],
 
 @contextlib.contextmanager
 def recording_host_dp():
-    """Record every fragment pair that ``dart_tpu``'s Python pipeline
+    """Record every fragment pair that the Python pipeline
     (``cfg.native = False``, or ``-d``) hands its host DP, ``nw_align``
     as ``pipeline.finalize`` and ``pipeline.cigar`` import it, while
     the host DP still answers. Yields the list the pairs are appended
     to; the two modules get their ``nw_align`` back on exit."""
-    from dart_tpu.pipeline import cigar, finalize
+    from ..pipeline import cigar, finalize
 
     pairs = []
     saved = {mod: mod.nw_align for mod in (finalize, cigar)}

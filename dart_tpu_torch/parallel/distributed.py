@@ -1,9 +1,9 @@
 """Multi-host runs over ``torch.distributed``: the port of
 ``dart_tpu.parallel.distributed.run_distributed``.
 
-Each process owns a shard of the input (``dart_tpu``'s JAX-free
-readers: record-aligned byte ranges of a plain single-end file,
-round-robin chunks of gzip, split or interleaved paired input), aligns
+Each process owns a shard of the input (``make_shard_reader``:
+record-aligned byte ranges of a plain single-end file, round-robin
+chunks of gzip, split or interleaved paired input), aligns
 it on its own engine (``aligner.make_engine`` on its device: ``cuda``
 is card ``pid`` mod the card count), and writes its own SAM shard with
 an index of its chunk offsets, and, with ``--checkpoint``, a resume
@@ -27,9 +27,119 @@ import os
 import torch
 import torch.distributed as dist
 
-from dart_tpu.parallel.distributed import _StridedReader, make_shard_reader
-
 TIMEOUT_S = 600  # bound on every collective: the slowest shard's lag
+
+
+# ---------------------------------------------------------- input sharding
+
+
+def find_record_start(fh, offset: int, fastq: bool) -> int:
+    """First record boundary at or after `offset`.
+
+    FASTA: a line starting with '>'. FASTQ: a line starting with '@'
+    whose next-next line starts with '+' (disambiguates quality lines
+    that begin with '@', GetData.cpp-compatible 4-line records)."""
+    if offset == 0:
+        return 0
+    fh.seek(offset)
+    fh.readline()  # skip the (possibly partial) current line
+    while True:
+        pos = fh.tell()
+        line = fh.readline()
+        if not line:
+            return pos
+        if not fastq:
+            if line.startswith(b">"):
+                return pos
+            continue
+        if line.startswith(b"@"):
+            save = fh.tell()
+            fh.readline()
+            plus = fh.readline()
+            fh.seek(save)
+            if plus.startswith(b"+"):
+                return pos
+
+
+def byte_shard(path: str, n_shards: int, shard_id: int,
+               fastq: bool) -> tuple[int, int]:
+    """[start, end) byte range of this process's shard, record-aligned."""
+    size = os.path.getsize(path)
+    with open(path, "rb") as fh:
+        lo = find_record_start(fh, size * shard_id // n_shards, fastq)
+        hi = (find_record_start(fh, size * (shard_id + 1) // n_shards, fastq)
+              if shard_id + 1 < n_shards else size)
+    return lo, hi
+
+
+class _RangeFile:
+    """File object exposing only [start, end) to the line reader."""
+
+    def __init__(self, path: str, start: int, end: int):
+        self.fh = open(path, "rb")
+        self.fh.seek(start)
+        self.end = end
+
+    def readline(self) -> bytes:
+        if self.fh.tell() >= self.end:
+            return b""
+        return self.fh.readline()
+
+    def close(self):
+        self.fh.close()
+
+
+def make_shard_reader(path1: str, path2, pair_end: bool, chunk_reads: int,
+                      n_shards: int, shard_id: int):
+    """ChunkReader over this process's shard. For paired split files the
+    shard boundary must cut both mates at the same RECORD index, so
+    split files shard by record-synchronized byte ranges computed from
+    mate-1 record counts — conservatively implemented as round-robin
+    chunk striping (correct for any input)."""
+    from ..io.fastx import ChunkReader
+
+    gz = path1.endswith(".gz")
+    if gz or path2 is not None or pair_end:
+        # pair_end without path2 = interleaved pairs: byte_shard aligns
+        # to ANY record boundary, and a shard starting at an odd record
+        # index would flip mate parity for its whole range — chunk
+        # round-robin keeps pairs intact (chunks round to even counts)
+        return _StridedReader(ChunkReader(path1, path2, pair_end,
+                                          chunk_reads=chunk_reads),
+                              n_shards, shard_id)
+    reader = ChunkReader(path1, None, pair_end, chunk_reads=chunk_reads)
+    lo, hi = byte_shard(path1, n_shards, shard_id, reader.fastq)
+    reader.r1.fh.close()
+    reader.r1.fh = _RangeFile(path1, lo, hi)
+    return reader
+
+
+class _StridedReader:
+    """Round-robin chunk assignment over a full-stream reader."""
+
+    def __init__(self, reader, n_shards: int, shard_id: int):
+        self.reader = reader
+        self.n = n_shards
+        self.k = shard_id
+        self.i = 0
+        self.fastq = reader.fastq
+        self.pair_end = reader.pair_end
+
+    def next_chunk(self):
+        while True:
+            chunk = self.reader.next_chunk()
+            if not chunk:
+                return chunk
+            if self.i % self.n == self.k:
+                self.i += 1
+                return chunk
+            self.i += 1
+
+    def close(self):
+        self.reader.close()
+
+
+# ---------------------------------------------------------- the run
 
 
 def rank_device(device, pid: int) -> torch.device:
@@ -86,11 +196,9 @@ def run_distributed(cfg, coordinator: str, nprocs: int, pid: int,
 
 
 def _run(cfg, nprocs: int, pid: int, device) -> None:
-    from dart_tpu.aligner import DartAligner
-    from dart_tpu.index import load_index
-    from dart_tpu.pipeline.junctions import write_sj_table
-
-    from ..aligner import make_engine
+    from ..aligner import DartAligner, make_engine
+    from ..index import load_index
+    from ..pipeline.junctions import write_sj_table
 
     idx = load_index(cfg.index_prefix)
     aligner = DartAligner(idx, cfg, engine=make_engine(idx, cfg, device))
@@ -240,7 +348,7 @@ def _merge_shards(cfg, aligner, nprocs: int) -> None:
 
     try:
         if cfg.output_format == 1:
-            from dart_tpu.io.bam import BamWriter
+            from ..io.bam import BamWriter
 
             writer = BamWriter(cfg.output_file, threads=cfg.threads,
                                level=cfg.bam_level)

@@ -78,8 +78,7 @@ class ShardedFMIndexTorch:
     ``seed_finish``, ``seed_reads``, ``locate_submit`` /
     ``locate_finish`` / ``locate``, ``mem_walks`` on the narrow engine,
     ``_pad_up``, ``_min_bucket``, ``launches``) over a ``make_mesh``
-    grid. No ``seed_drain``: the shared seeding code takes its JAX-free
-    path. ``wide`` as ``FMIndexTorch`` takes it (None: from 2^31 text
+    grid. ``wide`` as ``FMIndexTorch`` takes it (None: from 2^31 text
     positions on)."""
 
     _min_bucket = 1

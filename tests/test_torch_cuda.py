@@ -2,8 +2,8 @@
 their plain PyTorch versions on the same device tensors (narrow and
 wide, with and without the K-mer table; the MEM walk; the gap DP; and
 each of them again through the range-sharded table access of
-``--mesh ...,index=N``), and a golden config aligned on the card, on
-one engine and on a device grid. Marked ``cuda``: they skip without a CUDA device. On a
+``--mesh ...,index=N``), and a golden config aligned on the card by the
+port's ``DartAligner``, on one engine and on a device grid. Marked ``cuda``: they skip without a CUDA device. On a
 machine with one: ``pytest -m cuda tests/test_torch_cuda.py``.
 """
 
@@ -15,9 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from dart_tpu.aligner import DartAligner
-from dart_tpu.config import DartConfig
 from dart_tpu.ops.nw_numpy import nw_align
+from dart_tpu_torch.aligner import DartAligner
+from dart_tpu_torch.config import DartConfig
 from dart_tpu_torch.ops import nw_torch
 from dart_tpu_torch.ops.fm_torch import FMIndexTorch, pack_codes
 from dart_tpu_torch.ops.layout import ShardedTable

@@ -1,50 +1,77 @@
-"""dart_tpu_torch never imports JAX: in a fresh interpreter where any
-attempt to import jax is recorded and refused, the port imports (its
-gap DP, entry step, device grid and multi-host modules among the
-rest), aligns a golden config on one device and another on a
-``--mesh data=2,index=2`` grid, and a batch of gap DPs, and no attempt
-was made."""
+"""dart_tpu_torch stands alone: in a fresh interpreter where any attempt
+to import ``jax`` or the JAX package ``dart_tpu`` is recorded and
+refused, the port imports (its gap DP, entry step, device grid and
+multi-host modules among the rest), aligns golden configs on one device
+(through the native and the pure-Python host pipeline, SAM and BAM) and
+one on a ``--mesh data=2,index=2`` grid, builds an index, runs ``eva``,
+runs the entry step and a batch of gap DPs, and no attempt was made.
+The outputs are then held here, where ``dart_tpu`` may be imported,
+against the goldens and against ``dart_tpu``'s own."""
 
+import contextlib
+import io
 import json
 import pathlib
 import subprocess
 import sys
 import textwrap
 
+from dart_tpu import cli as dart_tpu_cli
+from dart_tpu.aligner import DartAligner
+from dart_tpu.config import DartConfig
+
 SCRIPT = textwrap.dedent("""
-    import importlib.abc, json, sys
+    import contextlib, importlib.abc, io, json, sys
 
     attempts = []
 
-    class NoJax(importlib.abc.MetaPathFinder):
+    class Refuse(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
-            if name == "jax" or name.startswith(("jax.", "jaxlib")):
+            if name.split(".")[0] in ("jax", "jaxlib", "dart_tpu"):
                 attempts.append(name)
-                raise ModuleNotFoundError(f"jax is refused here: {name}")
+                raise ModuleNotFoundError(f"refused here: {name}")
             return None
 
-    sys.meta_path.insert(0, NoJax())
+    sys.meta_path.insert(0, Refuse())
     import dart_tpu_torch, dart_tpu_torch.aligner, dart_tpu_torch.cli
     import dart_tpu_torch.entry, dart_tpu_torch.ops.nw_torch
     import dart_tpu_torch.parallel.mesh, dart_tpu_torch.parallel.distributed
+    import dart_tpu_torch.evaluation, dart_tpu_torch.io.bam
     import torch
     from dart_tpu_torch.cli import main
+    from dart_tpu_torch.entry import entry
     from dart_tpu_torch.ops.nw_torch import nw_align_batch
 
     torch.set_num_threads(1)
 
     gold, data, out = sys.argv[1:4]
-    rc = main(["-i", gold + "/index/toy", "-f", data + "/spliced_mm.fq",
-               "-mis", "5", "-all_sj", "-o", out + "/o.sam",
-               "-j", out + "/o.tab", "-silent", "--device", "cpu"])
-    rc_mesh = main(["-i", gold + "/index/toy", "-f", data + "/spliced.fa",
+    toy = gold + "/index/toy"
+    rc = main(["-i", toy, "-f", data + "/spliced_mm.fq", "-mis", "5",
+               "-all_sj", "-o", out + "/o.sam", "-j", out + "/o.tab",
+               "-silent", "--device", "cpu"])
+    rc_py = main(["-i", toy, "-f", data + "/se_mm.fq", "-mis", "5",
+                  "-o", out + "/p.sam", "-j", out + "/p.tab", "-silent",
+                  "--device", "cpu", "--no-native"])
+    rc_bam = main(["-i", toy, "-f", data + "/spliced.fa", "-bo",
+                   out + "/b.bam", "-j", out + "/b.tab", "-silent",
+                   "--device", "cpu"])
+    rc_mesh = main(["-i", toy, "-f", data + "/spliced.fa",
                     "-o", out + "/m.sam", "-j", out + "/m.tab", "-silent",
                     "--device", "cpu", "--mesh", "data=2,index=2"])
+    rc_index = main(["index", data + "/toy.fa", out + "/idx"])
+    eva = io.StringIO()
+    with contextlib.redirect_stdout(eva):
+        rc_eva = main(["eva", gold + "/c3_spliced.sam", data + "/toy.fa"])
+    step, args = entry("cpu")
+    got = step(*args)
+    same = all(bool((g == w).all()) for g, w in zip(got, step.plain(*args)))
     aligned = nw_align_batch([(b"AACCGG", b"AACGG"), (b"", b"ACG")], "cpu")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in
-                    ("jax", "jaxlib"))
-    print(json.dumps({"rc": rc, "rc_mesh": rc_mesh, "attempts": attempts,
-                      "loaded": loaded,
+                    ("jax", "jaxlib", "dart_tpu"))
+    print(json.dumps({"rc": [rc, rc_py, rc_bam, rc_mesh, rc_index, rc_eva],
+                      "attempts": attempts, "loaded": loaded,
+                      "eva": eva.getvalue(), "entry_same": same,
+                      "entry_accepted": int((got[2] >= 0).sum()),
                       "aligned": [[a.decode(), b.decode()]
                                   for a, b in aligned]}))
 """)
@@ -57,13 +84,36 @@ def test_port_never_imports_jax(golden_dir, data_dir, tmp_path):
         cwd=pathlib.Path(__file__).resolve().parents[1])
     assert res.returncode == 0, res.stderr
     got = json.loads(res.stdout.strip().splitlines()[-1])
-    assert got == {"rc": 0, "rc_mesh": 0, "attempts": [], "loaded": [],
+    eva = got.pop("eva")
+    assert got.pop("entry_accepted") > 0
+    assert got == {"rc": [0] * 6, "attempts": [], "loaded": [],
+                   "entry_same": True,
                    "aligned": [["AACCGG", "-AACGG"], ["---", "ACG"]]}
-    assert (tmp_path / "o.sam").read_bytes() == \
-        (golden_dir / "c4_spliced_mm.sam").read_bytes()
-    assert (tmp_path / "o.tab").read_bytes() == \
-        (golden_dir / "c4_spliced_mm.junctions.tab").read_bytes()
-    assert (tmp_path / "m.sam").read_bytes() == \
-        (golden_dir / "c3_spliced.sam").read_bytes()
-    assert (tmp_path / "m.tab").read_bytes() == \
-        (golden_dir / "c3_spliced.junctions.tab").read_bytes()
+
+    def same(a, b):
+        assert (tmp_path / a).read_bytes() == (golden_dir / b).read_bytes()
+
+    for out, gold in (("o", "c4_spliced_mm"), ("p", "c2_se_mm"),
+                      ("m", "c3_spliced")):
+        same(f"{out}.sam", f"{gold}.sam")
+        same(f"{out}.tab", f"{gold}.junctions.tab")
+    same("b.tab", "c3_spliced.junctions.tab")
+    for ext in (".bwt", ".sa", ".pac", ".ann", ".amb"):
+        same(f"idx{ext}", f"index/toy{ext}")
+
+    # the BAM bytes and the eva report equal dart_tpu's own
+    cfg = DartConfig()
+    cfg.read_files_1 = [str(data_dir / "spliced.fa")]
+    cfg.output_format, cfg.silent, cfg.engine = 1, True, "numpy"
+    cfg.output_file = str(tmp_path / "want.bam")
+    cfg.sj_file = str(tmp_path / "want.tab")
+    from dart_tpu.index import load_index
+
+    DartAligner(load_index(str(golden_dir / "index" / "toy")), cfg).run()
+    assert (tmp_path / "b.bam").read_bytes() == \
+        (tmp_path / "want.bam").read_bytes()
+    want = io.StringIO()
+    with contextlib.redirect_stdout(want):
+        dart_tpu_cli.main(["eva", str(golden_dir / "c3_spliced.sam"),
+                           str(data_dir / "toy.fa")])
+    assert eva == want.getvalue() and eva.strip()

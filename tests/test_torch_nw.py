@@ -14,11 +14,12 @@ import numpy as np
 import pytest
 import torch
 
-from dart_tpu.aligner import DartAligner
-from dart_tpu.cli import parse_args
 from dart_tpu.constants import NT4_TABLE
 from dart_tpu.ops import nw_pallas
 from dart_tpu.ops.nw_numpy import nw_align
+from dart_tpu_torch.aligner import DartAligner, make_engine
+from dart_tpu_torch.cli import parse_args
+from dart_tpu_torch.index import load_index
 from dart_tpu_torch.ops import nw_torch
 from dart_tpu_torch.ops.nw_plain import nw_plain
 from dart_tpu_torch.ops.nw_torch import (nw_align_batch, nw_planes,
@@ -69,11 +70,12 @@ def pallas_planes(pairs):
 
 
 @pytest.fixture(scope="module")
-def golden_pairs(toy_index, data_dir, golden_dir, tmp_path_factory):
-    """Every pair that dart_tpu's Python pipeline (NumPy engine,
+def golden_pairs(data_dir, golden_dir, tmp_path_factory):
+    """Every pair that the port's Python pipeline (its engine on the CPU,
     cfg.native = False) hands its host DP on goldens c4_spliced_mm and
     c5_pe, whose SAM it still writes byte-equal to the golden."""
     out = tmp_path_factory.mktemp("nw")
+    toy = load_index(str(golden_dir / "index" / "toy"))
     runs = {"c4_spliced_mm": ["-f", "spliced_mm.fq", "-mis", "5", "-all_sj"],
             "c5_pe": ["-f", "pe_1.fq", "-f2", "pe_2.fq", "-mis", "5"]}
     pairs = []
@@ -82,10 +84,10 @@ def golden_pairs(toy_index, data_dir, golden_dir, tmp_path_factory):
         cfg = parse_args(["-i", str(golden_dir / "index" / "toy"), *flags,
                           "-o", str(out / f"{name}.sam"), "-j",
                           str(out / f"{name}.tab"), "-silent"])
-        cfg.engine, cfg.native = "numpy", False
+        cfg.native = False
         with recording_host_dp() as rec, \
                 contextlib.redirect_stdout(io.StringIO()):
-            DartAligner(toy_index, cfg).run()
+            DartAligner(toy, cfg, engine=make_engine(toy, cfg, "cpu")).run()
         assert (out / f"{name}.sam").read_bytes() == \
             (golden_dir / f"{name}.sam").read_bytes()
         pairs += rec
