@@ -20,10 +20,11 @@ the root of a checkout it:
    wide, with and without the table) on repeat reads (the telomeric
    repeat, with a mismatch in its last base, with an N; tandem repeats;
    a repeat into unique sequence) at max_dup 0, 1 and 100, against the
-   plain scan run on the CPU; the narrow K-mer table build,
-   whole; then times every kernel and its plain version at the main
-   path's shapes (65536 reads of 128 padded bases; 65536 rows; one
-   K = 11 table);
+   plain scan run on the CPU; the K-mer table builds, whole, narrow and
+   wide, at K = 11 on the 8 Mbp index and at K = 1, 4, 8, 11 and 12 on
+   the toy index (one launch at K = 1, two from K = 2 on); then times
+   every kernel and its plain version at the main path's shapes (65536
+   reads of 128 padded bases; 65536 rows; one K = 11 table);
 3. runs the nine golden configs through ``dart-tpu-torch --device
    cuda`` (narrow engine, K-mer table on) and through ``DartAligner``
    with the wide engine forced, and requires SAM and ``junctions.tab``
@@ -36,9 +37,10 @@ the root of a checkout it:
    two SAMs equal and the first 5,000 reads' SAM and junction table of
    each engine equal to the port's CPU path's (its plain versions);
 5. on the 50 Mbp index (``50mbp_se``: a 30 + 20 Mbp genome, same read
-   mix; its 125 MB narrow table is past the 50 MB L2) holds the wide
-   K-mer table build against its plain version, whole, and times every
-   kernel and its plain version at the same shapes as phase 2;
+   mix; its 125 MB narrow table is past the 50 MB L2) holds the narrow
+   and the wide K-mer table builds against their plain versions, whole,
+   and times every kernel and its plain version at the same shapes as
+   phase 2;
 6. aligns ``50mbp_se``'s 100,000 reads with the narrow and with the wide
    engine (K-mer table on) and requires the whole SAM and junction
    table byte-equal between the two;
@@ -92,13 +94,15 @@ the root of a checkout it:
     kernels' summed time, the seed scans' share of it and the card's
     idle share of the traced window;
 13. ``[diagnosis]``, what bounds the seed scan (``phase_diagnosis``):
-    ``-Xptxas -v`` of every kernel, the latency of one dependent load in
-    and past the L2, the seed scan's time against the reads of a launch,
-    and the dependent loads a read makes (the plain version counts
-    them), with the critical-path floor they give;
+    ``-Xptxas -v`` of every kernel (the seed scans and the K-mer table
+    builds must show no stack and no spill), the latency of one
+    dependent load in and past the L2, the seed scan's time against the
+    reads of a launch, and the dependent loads a read makes (the plain
+    version counts them), with the critical-path floor they give;
 14. ``[redesign]``, only where ``chip_smoke_work/parent/fm_kernels.cu``
-    holds an earlier seed scan, put there for a measurement call: that
-    one against this tree's, in turns (``phase_redesign``).
+    holds an earlier kernel source, put there for a measurement call:
+    its seed scans and K-mer table builds against this tree's, in turns
+    (``phase_redesign``).
 
 The data sets are generated in ``bench.py``'s steps with the port's own
 index builder; nothing of JAX or of the JAX package ``dart_tpu`` is
@@ -170,6 +174,7 @@ GOLDEN = {  # tests/test_parity.py's nine configs, as CLI flags
 MAIN_R, MAIN_LP = 65536, 128  # the main path's seed-scan shape
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (published peak)
 LUT_K = 11  # the K-mer table's K on a card (dart_tpu_torch.aligner)
+TOY_LUT_KS = (1, 4, 8, 11, 12)  # K-mer tables held whole on the toy index
 N_PARITY = 5000
 N_NW_READS = 2000  # reads through the Python pipeline in phase 7
 N_TIMED = 65536  # gap-DP pairs and MEM-walk tasks timed at once
@@ -293,12 +298,18 @@ def read_fastq(path: str, n: int):
 
 
 def time_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps runs, after one warm-up."""
+    """Mean device time of fn() over reps runs, after one warm-up. The
+    card first sleeps for 20 ms, so that every launch is queued before
+    the first one starts: a kernel shorter than its launch's host time
+    (Python, ctypes, allocation: tens of µs) is then timed by the card's
+    work alone."""
     import torch
 
     fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)  # clock cycles: ~20 ms at ~2 GHz
     start.record()
     for _ in range(reps):
         fn()
@@ -442,11 +453,25 @@ def phase_kernels(toy, big, ds, device: str, n_scan: int, n_rows: int,
     rows = rng.integers(0, big.seq_len, n_rows)
     for eng in engs.values():
         locate_check(eng, rows, "the 8 Mbp index (random)")
-    note("lut_build", check_equal("lut_build (K=11, 8 Mbp)", engs[False].lut,
-                                  engs[False].plain_build_lut()))
-    log(f"  lut_build kernel == plain, whole K={LUT_K} table of the 8 Mbp "
-        f"index ({int((engs[False].lut[:, 2] == 0).sum())} of "
-        f"{4**LUT_K} K-mers dead)")
+    for wide, eng in engs.items():
+        name = "lut_build_wide" if wide else "lut_build"
+        note(name, check_equal(f"{name} (K={LUT_K}, 8 Mbp)", eng.lut,
+                               eng.plain_build_lut()))
+    log(f"  lut_build and lut_build_wide kernels == plain, whole K={LUT_K} "
+        f"tables of the 8 Mbp index "
+        f"({int((engs[False].lut[:, 2] == 0).sum())} of {4**LUT_K} K-mers "
+        "dead)")
+    for k in TOY_LUT_KS:
+        for wide in (False, True):
+            name = "lut_build_wide" if wide else "lut_build"
+            eng = FMIndexTorch(toy, device, lut_k=k, wide=wide)
+            note(name, check_equal(f"{name} (K={k}, toy)", eng.lut,
+                                   eng.plain_build_lut()))
+            if device == "cuda" and eng.n_lut_launches != 1 + (k > 1):
+                raise AssertionError(f"{name} at K={k}: "
+                                     f"{eng.n_lut_launches} launches")
+    log(f"  lut_build and lut_build_wide kernels == plain, whole tables of "
+        f"the toy index at K={', '.join(map(str, TOY_LUT_KS))}")
 
     codes, rlens = read_fastq(ds["fq"][0], max(n_scan, main_r))
     sc, sl = codes[:n_scan].copy(), rlens[:n_scan].copy()
@@ -625,8 +650,9 @@ def main_shape_times(engs, codes, rlens, rng, device: str, what: str) -> dict:
 
 
 def phase_kernels50(big50, ds50, device: str, seed: int) -> dict:
-    """The wide K-mer table build held against its plain version on the
-    50 Mbp index, whole; then every kernel timed there."""
+    """The narrow and the wide K-mer table builds held against their
+    plain versions on the 50 Mbp index, whole; then every kernel timed
+    there."""
     import numpy as np
 
     from dart_tpu_torch.ops.fm_torch import FMIndexTorch
@@ -637,11 +663,11 @@ def phase_kernels50(big50, ds50, device: str, seed: int) -> dict:
     log(f"  50 Mbp engines: narrow set-up {fmt_setup(engs[False])}, wide "
         f"{fmt_setup(engs[True])}; tables {mb[False]:.1f} MB narrow, "
         f"{mb[True]:.1f} MB wide")
-    res = {"lut_build_wide": check_equal(
-        "lut_build_wide (K=11, 50 Mbp)", engs[True].lut,
-        engs[True].plain_build_lut())}
-    log(f"  lut_build_wide kernel == plain, whole K={LUT_K} table of the "
-        "50 Mbp index")
+    res = {("lut_build_wide" if w else "lut_build"): check_equal(
+        f"lut_build{'_wide' if w else ''} (K={LUT_K}, 50 Mbp)", e.lut,
+        e.plain_build_lut()) for w, e in engs.items()}
+    log(f"  lut_build and lut_build_wide kernels == plain, whole K={LUT_K} "
+        "tables of the 50 Mbp index")
     if device == "cuda":
         codes, rlens = read_fastq(ds50["fq"][0], MAIN_R)
         res["times"] = main_shape_times(engs, codes, rlens,
@@ -1516,7 +1542,9 @@ def phase_diagnosis(big, ds, device: str) -> dict:
     without (narrow) and with it (wide, whose SA is sampled more
     densely); the latency of one dependent load at 20 MiB (in the L2)
     and 128 MiB (past it); the critical-path floor (the longest read's
-    loads times that latency); and ``-Xptxas -v`` of every kernel."""
+    loads times that latency); and ``-Xptxas -v`` of every kernel, which
+    fails the phase, at its end, if a seed scan or a K-mer table build
+    has a stack frame or spills."""
     import numpy as np
     import torch
 
@@ -1524,6 +1552,9 @@ def phase_diagnosis(big, ds, device: str) -> dict:
 
     res = {"ptxas": ptxas_table(os.path.join(HERE, FM_SOURCE))}
     log_ptxas(res["ptxas"], "this tree")
+    local = [r["name"] for r in res["ptxas"]
+             if ("seed_scan" in r["name"] or "lut_" in r["name"])
+             and (r.get("stack") or r.get("spill_st") or r.get("spill_ld"))]
     res["chase_ns"] = {mb: chase_ns(mb, device) for mb in (20, 128)}
     log(f"  dependent-load latency (pointer chase, one thread): "
         f"{res['chase_ns'][20]:.1f} ns at 20 MiB, "
@@ -1559,6 +1590,8 @@ def phase_diagnosis(big, ds, device: str) -> dict:
             f"floor {floor_us:.2f} us; all reads by kind {st['by_kind']}, "
             f"the longest read [extend, locate, compare, lut, walks] "
             f"{st['longest_by_kind']}")
+    if local:
+        raise AssertionError(f"local memory (stack or spills) in {local}")
     return res
 
 
@@ -1580,15 +1613,56 @@ def fm_call(lib, eng, t, words: int, S: int, lut) -> "torch.Tensor":
     return out
 
 
+def lut_call(lib, eng, out):
+    """One K-mer table build of ``lib``'s C entry for ``eng``'s layout
+    and table access, K = ``eng.lut_k``, into ``out``, as
+    ``FMIndexTorch.build_lut`` makes it (the C interface is the same in
+    every version)."""
+    fn = getattr(lib, f"dart_fm_lut_build{eng._sfx}")
+    rc = fn(*eng._tab, eng._params_ptr(), eng.lut_k, out.data_ptr(),
+            eng._stream())
+    if rc:
+        raise RuntimeError(f"LUT build launch failed: CUDA error {rc}")
+    return out
+
+
+def redesign_lut(old, indexes: dict, device: str) -> dict:
+    """The parent's K-mer table build against this tree's at K = 11, in
+    turns, on each index, narrow and wide, on one table and on two
+    shards of it (index=2); both held equal to the plain version."""
+    import torch
+
+    from dart_tpu_torch.ops.fm_torch import FMIndexTorch
+
+    times = {}
+    for what, (idx, _) in indexes.items():
+        for wide in (False, True):
+            for shards in (1, 2):
+                eng = (FMIndexTorch(idx, device, lut_k=LUT_K, wide=wide)
+                       if shards == 1 else sharded(idx, device, shards,
+                                                   lut_k=LUT_K, wide=wide))
+                tag = (f"{what} lut_build{'_wide' if wide else ''}"
+                       + ("" if shards == 1 else f", index={shards}"))
+                want = eng.plain_build_lut()
+                out = torch.empty_like(want)
+                check_equal(f"old {tag}", lut_call(old, eng, out), want)
+                check_equal(f"new {tag}", eng.build_lut(), want)
+                times[tag] = turns(tag, lambda: lut_call(old, eng, out),
+                                   eng.build_lut)
+                del eng, want, out
+    return times
+
+
 def phase_redesign(indexes: dict, device: str) -> dict:
-    """The parent's seed scan (``chip_smoke_work/parent/fm_kernels.cu``,
+    """The parent's kernels (``chip_smoke_work/parent/fm_kernels.cu``,
     put there for a measurement call) against this tree's, in one call
-    on one card: its ``-Xptxas -v``, then at 8 and 50 Mbp, narrow and
-    wide, with and without the K-mer table, both held equal to the
-    plain version's output and timed in turns (old, new, new, old) with
-    the table warm; and both at 16,384 and 262,144 reads of the first
-    index (narrow, K = 11), which shows whether the floor under the time
-    moved. Skipped without the parent's source."""
+    on one card: its ``-Xptxas -v``, then at 8 and 50 Mbp the seed
+    scans, narrow and wide, with and without the K-mer table, both held
+    equal to the plain version's output and timed in turns (old, new,
+    new, old) with the table warm, and both at 16,384 and 262,144 reads
+    of the first index (narrow, K = 11), which shows whether the floor
+    under the time moved; then the K-mer table builds
+    (``redesign_lut``). Skipped without the parent's source."""
     import ctypes
 
     import numpy as np
@@ -1604,6 +1678,7 @@ def phase_redesign(indexes: dict, device: str) -> dict:
     res = {"ptxas_old": ptxas_table(os.path.join(parent, "fm_kernels.cu")),
            "times": {}}
     log_ptxas(res["ptxas_old"], "parent", "seed_scan")
+    log_ptxas(res["ptxas_old"], "parent", "lut_")
     for what, (idx, fq) in indexes.items():
         codes, rlens = read_fastq(fq, MAIN_R)
         t, words, S = pack(codes, rlens, device)
@@ -1636,6 +1711,8 @@ def phase_redesign(indexes: dict, device: str) -> dict:
             f"{what} narrow K=11, R={R}",
             lambda: fm_call(old, eng, t, words, S, eng.lut),
             lambda: eng.seed_scan(t, words, S))
+    del eng
+    res["lut_times"] = redesign_lut(old, indexes, device)
     return res
 
 
@@ -1842,8 +1919,8 @@ def main() -> int:
     launches = {**scale["narrow"]["launches"], **scale["wide"]["launches"]}
     k50 = state["kernels50"]
     err50 = {k: v["max_abs_err"] for k, v in k50["times"].items()}
-    err50["lut_build_wide"] = max(err50["lut_build_wide"],
-                                  k50["lut_build_wide"])
+    for k in ("lut_build", "lut_build_wide"):
+        err50[k] = max(err50[k], k50[k])
 
     def row(name, source, replaces, n, r, err):
         return {"name": name, "route": "cuda", "source": source,

@@ -46,9 +46,14 @@ from .pipeline.seeding import identify_seed_pairs_chunk
 
 
 def default_lut_k(device) -> int:
-    """The K-mer table's K on ``device``, as ``dart_tpu`` chooses it: 11
-    on an accelerator (a 67 MB narrow table), none on the CPU, where
-    building the table costs more than it saves."""
+    """The K-mer table's K on ``device``, as ``dart_tpu`` chooses it:
+    ``DART_TPU_LUT`` when it holds an int of 0 or more (0: no table);
+    unset or negative, 11 on an accelerator (a 67 MB narrow table) and
+    none on the CPU, where building the table costs more than it saves.
+    A K past ``MAX_LUT_K`` raises when the engine is built."""
+    lut_k = int(os.environ.get("DART_TPU_LUT", "-1"))
+    if lut_k >= 0:
+        return lut_k
     return 11 if torch.device(device).type == "cuda" else 0
 
 

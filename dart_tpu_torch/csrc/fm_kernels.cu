@@ -25,10 +25,10 @@
 // The K-mer table (LUT) holds, for each K-mer, the bidirectional interval
 // after the walk from its first base has taken its other K - 1 bases, or
 // zeros once the walk died: [x0 x1 x2 0] uint32 narrow, [x0 x1 x2] int64
-// wide. lut_build_kernel walks one K-mer per thread with the extension
-// step the seed scan uses, in one launch; a walk from a given prefix is
-// deterministic, so this gives the TPU form's level-by-level table. With a
-// LUT, the seed scan starts each walk K bases in.
+// wide. It is built as the TPU form builds it, level by level, each
+// prefix extended once into its four children: a root pass, then a warp
+// to each subtree of kLutDepth levels (at lut_build_kernel). With a LUT,
+// the seed scan starts each walk K bases in.
 //
 // What bounds them: each step of a lane is a gather of one table row whose
 // address depends on the previous step. The work per row is a few
@@ -38,10 +38,10 @@
 // step costs a DRAM round trip, which the LUT saves K - 1 times a walk. A
 // row is read as 16-byte loads (two narrow, four wide).
 //
-// The locate, the K-mer table build and the MEM walk answer latency with
-// parallelism: one thread per row to locate, per K-mer, per MEM-walk task,
-// a plain sequential loop in each thread, 128 threads a block, so that
-// tens of thousands of independent gathers are in flight at once.
+// The locate and the MEM walk answer latency with parallelism: one thread
+// per row to locate, per MEM-walk task, a plain sequential loop in each
+// thread, 128 threads a block, so that tens of thousands of independent
+// gathers are in flight at once.
 //
 // The seed scan (K1 narrow, K4 wide) was on the TPU one vectorised
 // automaton over a chunk's reads: every lane took the same step, a merged
@@ -174,10 +174,22 @@ struct Narrow {
     x2 = (int)e.z;
   }
 
+  static constexpr int kLutBytes = 16;  // a K-mer table entry
+
   __device__ static void lut_store(void* lut, long long key, int x0, int x1,
                                    int x2) {
     static_cast<uint4*>(lut)[key] =
         make_uint4((uint32_t)x0, (uint32_t)x1, (uint32_t)x2, 0u);
+  }
+
+  // lut_load from a table being built in shared memory, which __ldg
+  // cannot read
+  __device__ static void lut_get(const void* lut, long long key, int& x0,
+                                 int& x1, int& x2) {
+    const uint4 e = static_cast<const uint4*>(lut)[key];
+    x0 = (int)e.x;
+    x1 = (int)e.y;
+    x2 = (int)e.z;
   }
 };
 
@@ -213,12 +225,23 @@ struct Wide {
     x2 = __ldg(e + 2);
   }
 
+  static constexpr int kLutBytes = 24;
+
   __device__ static void lut_store(void* lut, long long key, long long x0,
                                    long long x1, long long x2) {
     long long* e = static_cast<long long*>(lut) + 3 * key;
     e[0] = x0;
     e[1] = x1;
     e[2] = x2;
+  }
+
+  __device__ static void lut_get(const void* lut, long long key,
+                                 long long& x0, long long& x1,
+                                 long long& x2) {
+    const long long* e = static_cast<const long long*>(lut) + 3 * key;
+    x0 = e[0];
+    x1 = e[1];
+    x2 = e[2];
   }
 };
 
@@ -389,7 +412,7 @@ __device__ __forceinline__ bool extend_rows(
   return true;
 }
 
-// The same, loading the two Occ rows (the K-mer table build, the MEM walk).
+// The same, loading the two Occ rows (the MEM walk).
 template <class A, class L = typename A::Layout>
 __device__ __forceinline__ bool extend(const A& a,
                                        const FmParams<typename L::I>& p,
@@ -399,6 +422,72 @@ __device__ __forceinline__ bool extend(const A& a,
   load_row(a, (size_t)(occ_pos(p, x1 - 1) >> L::kOccShift), va);
   load_row(a, (size_t)(occ_pos(p, x1 - 1 + x2) >> L::kOccShift), vb);
   return extend_rows<L>(p, va, vb, ci, x0, x1, x2);
+}
+
+// Bases among the first t (clamped to 0 .. 32) of BWT words u, w (16 bases
+// each, top first) whose high bit is set, whose low bit is set, and both,
+// added to nh, nl and nb: u's bits packed at the even positions and w's at
+// the odd ones, so that one popcount counts both words.
+__device__ __forceinline__ void count_pair(uint32_t u, uint32_t w, int t,
+                                           int& nh, int& nl, int& nb) {
+  const int c = min(max(t, 0), 32);
+  // the top 2 c bits of u:w (two shifts: one by 64 would be undefined)
+  const unsigned long long m = ~0ull << (32 - c) << (32 - c);
+  const uint32_t even = 0x55555555u;
+  const uint32_t keep = ((uint32_t)(m >> 32) & even) | ((uint32_t)m & ~even);
+  const uint32_t hi = (((u >> 1) & even) | (w & ~even)) & keep;
+  const uint32_t lo = ((u & even) | ((w << 1) & ~even)) & keep;
+  nh += __popc(hi);
+  nl += __popc(lo);
+  nb += __popc(hi & lo);
+}
+
+// occ4_row with half its popcounts (count_pair): base 3 is both bits,
+// base 2 the high bit alone, base 1 the low bit alone.
+template <class L>
+__device__ __forceinline__ Occ4<typename L::I> occ4_pairs(
+    const uint4 (&v)[L::kVecs], typename L::I kk) {
+  const int take = (int)(kk & ((1 << L::kOccShift) - 1)) + 1;
+  int nh = 0, nl = 0, nb = 0;
+#pragma unroll
+  for (int q = 0; q < L::kVecs / 2; ++q) {
+    const uint4& b = v[L::kVecs / 2 + q];
+    count_pair(b.x, b.y, take - 64 * q, nh, nl, nb);
+    count_pair(b.z, b.w, take - 64 * q - 32, nh, nl, nb);
+  }
+  const Occ4<typename L::I> o = L::occ_all(v);
+  return {o.c0 + take - nh - nl + nb, o.c1 + nl - nb, o.c2 + nh - nb,
+          o.c3 + nb};
+}
+
+// The four extensions of the live interval (x0, x1, x2) at once, from the
+// same two Occ rows as extend_rows (_backward_ext in ops/fm_plain.py):
+// child b, the pattern extended by base b (ci = 3 - b), in (c0[b], c1[b],
+// c2[b]), or zeros where that pattern does not occur. Its start is a
+// running sum over ci = 3, 2, 1, 0: s3 = x0 + adj, s2 = s3 + w3,
+// s1 = s2 + w2, s0 = s1 + w1, adj counting the primary row as extend_rows
+// does.
+template <class L>
+__device__ __forceinline__ void extend4_rows(
+    const FmParams<typename L::I>& p, const uint4 (&va)[L::kVecs],
+    const uint4 (&vb)[L::kVecs], typename L::I x0, typename L::I x1,
+    typename L::I x2, typename L::I (&c0)[4], typename L::I (&c1)[4],
+    typename L::I (&c2)[4]) {
+  using I = typename L::I;
+  const Occ4<I> tk = occ4_pairs<L>(va, occ_pos(p, x1 - 1));
+  const Occ4<I> tl = occ4_pairs<L>(vb, occ_pos(p, x1 - 1 + x2));
+  const I k[4] = {tk.c0, tk.c1, tk.c2, tk.c3};
+  const I w[4] = {tl.c0 - tk.c0, tl.c1 - tk.c1, tl.c2 - tk.c2,
+                  tl.c3 - tk.c3};
+  I s = x0 + (I)(x1 <= p.primary && x1 + x2 - 1 >= p.primary);
+#pragma unroll
+  for (int ci = 3; ci >= 0; --ci) {
+    const bool ok = w[ci] > 0;
+    c0[3 - ci] = ok ? s : (I)0;
+    c1[3 - ci] = ok ? p.L2[ci] + 1 + k[ci] : (I)0;
+    c2[3 - ci] = ok ? w[ci] : (I)0;
+    s += w[ci];
+  }
 }
 
 // k % sa_intv and k / sa_intv of a row k >= 0; a mask and a shift when the
@@ -864,26 +953,200 @@ locate_kernel(A a, FmParams<typename A::Layout::I> p,
   if (i < n) out[i] = locate_row(a, p, rows[i]);
 }
 
-// One thread per K-mer (key = base-4, first base most significant): the
-// walk from its first base, extended by each following base.
+// The K-mer table build (K3 narrow, K6 wide; key = base-4, first base most
+// significant). Entry m of level l + 1 is entry m >> 2 of level l extended
+// by base m & 3, so each prefix is extended once, into its four children
+// from the same two Occ rows (extend4), as the TPU form's levels do;
+// extending every K-mer from its first base alone repeats each shared
+// prefix's extensions, 4^K (K - 1) of them against (4^K - 4) / 3.
+//
+// Two launches. lut_roots_kernel walks, one thread a root, the chain of
+// each (K - d)-mer, d = min(K - 1, kLutDepth), and leaves it in the table
+// at its first K-mer (at K = 1 the roots are the table). lut_build_kernel
+// then expands each root by d levels in one warp: level l's 4^l parents in
+// rounds of 32, lane j extending parent 32 q + j of round q, the levels in
+// the warp's part of shared memory, __syncwarp between rounds; a dead
+// parent (x2 == 0) gives four zero children and loads no row. The last
+// level goes through a staging area, 128 entries a round, to the table in
+// coalesced 16-byte streaming stores: the warp writes its 4^d K-mers, 4 KB
+// narrow or 6 KB wide, as one contiguous range. At K = 11: 16,384 roots of
+// 6 steps, then 1.4 M extensions, against the 41.9 M of a walk per K-mer.
+//
+// What bounds it: the table it writes (67 MB narrow, 100 MB wide at
+// K = 11) at the card's memory rate, and below that the row gathers: the
+// four children of a parent lie in four buckets of the BWT, so a lane's
+// rows are nowhere near its neighbours' and every extension gathers one
+// or two rows of its own from the L2. A warp's levels are a chain of
+// d + 1 dependent steps; with a warp, not a block, to a subtree, every
+// resident warp has a chain of its own, where a block to a subtree keeps
+// most of its warps waiting at a barrier while the top levels' few
+// parents are extended.
+constexpr int kLutDepth = 4;
+constexpr int kLutWarps = kThreads / 32;
+constexpr int kLutStage = 4 * 32;  // entries a round of the last level
+// entries of a warp's buffer: the staging area at 0, then the levels
+// 0 .. kLutDepth - 1; an even count, so that a wide buffer (24-byte
+// entries) is whole 16-byte vectors
+constexpr int kLutSlots =
+    (kLutStage + ((1 << (2 * kLutDepth)) - 1) / 3 + 1) & ~1;
+
+// d, the levels a warp expands for a table of K >= 1, below 4^(K - d)
+// roots.
+constexpr int lut_depth(int K) {
+  return K - 1 < kLutDepth ? K - 1 : kLutDepth;
+}
+
+// Where level l < d of a warp's subtree starts in its buffer, in entries.
+__device__ __forceinline__ int lut_slot(int l) {
+  return kLutStage + ((1 << (2 * l)) - 1) / 3;
+}
+
+// The four children of the live interval (x0, x1, x2): its two Occ rows,
+// one load when both counts fall in the same row, then extend4_rows.
+template <class A, class L = typename A::Layout>
+__device__ __forceinline__ void extend4(const A& a,
+                                        const FmParams<typename L::I>& p,
+                                        typename L::I x0, typename L::I x1,
+                                        typename L::I x2,
+                                        typename L::I (&c0)[4],
+                                        typename L::I (&c1)[4],
+                                        typename L::I (&c2)[4]) {
+  const size_t ra = (size_t)(occ_pos(p, x1 - 1) >> L::kOccShift);
+  const size_t rb = (size_t)(occ_pos(p, x1 - 1 + x2) >> L::kOccShift);
+  uint4 va[L::kVecs], vb[L::kVecs];
+  load_row(a, ra, va);
+  if (rb != ra) {
+    load_row(a, rb, vb);
+  } else {
+#pragma unroll
+    for (int k = 0; k < L::kVecs; ++k) vb[k] = va[k];
+  }
+  extend4_rows<L>(p, va, vb, x0, x1, x2, c0, c1, c2);
+}
+
+// The interval of root `root`, an n-mer: the walk from its first base,
+// extended by each following base, zeros once it died. At n = 1 no
+// extension runs, so a base absent from the text keeps
+// (L2[c] + 1, L2[3 - c] + 1, 0).
+template <class A, class L = typename A::Layout>
+__device__ __forceinline__ void lut_root(const A& a,
+                                         const FmParams<typename L::I>& p,
+                                         long long root, int n,
+                                         typename L::I& x0,
+                                         typename L::I& x1,
+                                         typename L::I& x2) {
+  using I = typename L::I;
+  const int c = (int)(root >> (2 * (n - 1))) & 3;
+  x0 = l2(p, c) + 1;
+  x1 = l2(p, 3 - c) + 1;
+  x2 = l2(p, c + 1) - l2(p, c);
+  for (int i = 1; i < n; ++i) {
+    if (x2 == 0) {  // dead: zeros from here on
+      x0 = x1 = 0;
+      return;
+    }
+    const int b = (int)(root >> (2 * (n - 1 - i))) & 3;
+    I c0[4], c1[4], c2[4];
+    extend4(a, p, x0, x1, x2, c0, c1, c2);
+    x0 = pick4(b, c0[0], c0[1], c0[2], c0[3]);
+    x1 = pick4(b, c1[0], c1[1], c1[2], c1[3]);
+    x2 = pick4(b, c2[0], c2[1], c2[2], c2[3]);
+  }
+}
+
+// Lane 0's first step: the warp's root r, left in the table by
+// lut_roots_kernel, into level 0 of the warp's buffer `sh`.
+template <class L>
+__device__ __forceinline__ void lut_take_root(const void* out, long long r,
+                                              int d, void* sh) {
+  typename L::I x0, x1, x2;
+  L::lut_get(out, r << (2 * d), x0, x1, x2);
+  L::lut_store(sh, lut_slot(0), x0, x1, x2);
+}
+
+// The rounds of level l: 4^l parents, 32 a round.
+__device__ __forceinline__ int lut_rounds(int l) {
+  return ((1 << (2 * l)) + 31) / 32;
+}
+
+// Lane j's step in round q of level l < d: the four children of parent
+// t = 32 q + j (child 4 t + b extends it by base b) into level l + 1, or,
+// at the last level, into the staging area at 4 j + b; nothing past the
+// level's last parent.
+template <class A, class L = typename A::Layout>
+__device__ __forceinline__ void lut_level(const A& a,
+                                          const FmParams<typename L::I>& p,
+                                          int l, int d, int q, int j,
+                                          void* sh) {
+  using I = typename L::I;
+  const int t = 32 * q + j;
+  if (t >= (1 << (2 * l))) return;
+  I x0, x1, x2;
+  L::lut_get(sh, lut_slot(l) + t, x0, x1, x2);
+  I c0[4] = {0, 0, 0, 0}, c1[4] = {0, 0, 0, 0}, c2[4] = {0, 0, 0, 0};
+  if (x2 != 0) extend4(a, p, x0, x1, x2, c0, c1, c2);
+  const int dst = l + 1 == d ? 4 * j : lut_slot(l + 1) + 4 * t;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) L::lut_store(sh, dst + b, c0[b], c1[b], c2[b]);
+}
+
+// Lane j's share of the copy of round q of the last level (entries
+// 128 q .. of root r's 4^d) from the staging area into the table, as
+// 16-byte vectors, neighbouring lanes on neighbouring vectors (an even
+// count of entries, d >= 1, is whole vectors at a whole vector's offset).
+// The stores stream (st.global.cs): the table is written once here, and
+// should not push the FM table's rows, which the gathers read, out of
+// the L2.
+template <class L>
+__device__ __forceinline__ void lut_copy_out(const void* sh, int d,
+                                             long long r, int q, int j,
+                                             void* out) {
+  const int left = (1 << (2 * d)) - kLutStage * q;
+  const int n = (left < kLutStage ? left : kLutStage) * L::kLutBytes / 16;
+  const uint4* s = static_cast<const uint4*>(sh);
+  uint4* o = static_cast<uint4*>(out) +
+             ((r << (2 * d)) + (long long)kLutStage * q) * L::kLutBytes / 16;
+  for (int i = j; i < n; i += 32) __stcs(o + i, s[i]);
+}
+
+// One thread a root, the (K - d)-mer r, into the table at r << 2 d.
 template <class A>
 __global__ void __launch_bounds__(kThreads)
-lut_build_kernel(A a, FmParams<typename A::Layout::I> p, int K,
+lut_roots_kernel(A a, FmParams<typename A::Layout::I> p, int K, int d,
                  void* __restrict__ out) {
   using L = typename A::Layout;
-  using I = typename L::I;
-  const long long key = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (key >= (1LL << (2 * K))) return;
-  const int c = (int)(key >> (2 * (K - 1))) & 3;
-  I x0 = l2(p, c) + 1, x1 = l2(p, 3 - c) + 1, x2 = l2(p, c + 1) - l2(p, c);
-  for (int i = 1; i < K; ++i) {
-    const int b = (int)(key >> (2 * (K - 1 - i))) & 3;
-    if (x2 == 0 || !extend(a, p, 3 - b, x0, x1, x2)) {
-      x0 = x1 = x2 = 0;
-      break;
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= (1LL << (2 * (K - d)))) return;
+  typename L::I x0, x1, x2;
+  lut_root(a, p, r, K - d, x0, x1, x2);
+  L::lut_store(out, r << (2 * d), x0, x1, x2);
+}
+
+// One warp a root, r = blockIdx.x * kLutWarps + warp: d >= 1 levels below
+// it.
+template <class A>
+__global__ void __launch_bounds__(kThreads)
+lut_build_kernel(A a, FmParams<typename A::Layout::I> p, int K, int d,
+                 void* __restrict__ out) {
+  using L = typename A::Layout;
+  constexpr int kVecs = kLutSlots * L::kLutBytes / 16;  // a warp's buffer
+  __shared__ uint4 sbuf[kLutWarps * kVecs];
+  const int j = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const long long r = (long long)blockIdx.x * kLutWarps + w;
+  if (r >= (1LL << (2 * (K - d)))) return;
+  uint4* sh = sbuf + w * kVecs;
+  if (j == 0) lut_take_root<L>(out, r, d, sh);
+  __syncwarp();
+  for (int l = 0; l < d; ++l) {
+    for (int q = 0; q < lut_rounds(l); ++q) {
+      lut_level(a, p, l, d, q, j, sh);
+      __syncwarp();
+      if (l + 1 == d) {
+        lut_copy_out<L>(sh, d, r, q, j, out);
+        __syncwarp();
+      }
     }
   }
-  L::lut_store(out, key, x0, x1, x2);
 }
 
 // The forward MEM walk of one (read, start) task per thread (BWT_Search,
@@ -962,13 +1225,19 @@ int launch_locate(A a, const typename A::Layout::I* params, const void* rows,
   return (int)cudaGetLastError();
 }
 
+// The root pass, then, from K = 2 on, the subtrees: two launches.
 template <class A>
 int launch_lut_build(A a, const typename A::Layout::I* params, int K,
                      void* out, void* stream) {
-  const long long n = 1LL << (2 * K);
-  lut_build_kernel<A><<<(unsigned)((n + kThreads - 1) / kThreads), kThreads,
-                        0, static_cast<cudaStream_t>(stream)>>>(
-      a, make_params(params), K, out);
+  const int d = lut_depth(K);
+  const long long roots = 1LL << (2 * (K - d));
+  const auto s = static_cast<cudaStream_t>(stream);
+  lut_roots_kernel<A><<<(unsigned)((roots + kThreads - 1) / kThreads),
+                        kThreads, 0, s>>>(a, make_params(params), K, d, out);
+  if (d > 0)
+    lut_build_kernel<A><<<(unsigned)((roots + kLutWarps - 1) / kLutWarps),
+                          kThreads, 0, s>>>(a, make_params(params), K, d,
+                                            out);
   return (int)cudaGetLastError();
 }
 

@@ -244,15 +244,16 @@ class FMIndexTorch:
 
     def build_lut(self) -> torch.Tensor:
         """The K-mer walk-state table for K = ``lut_k`` (> 0): (4^K, 4)
-        int32 [x0, x1, x2, 0] narrow, (4^K, 3) int64 wide; one kernel
-        launch on a CUDA device."""
+        int32 [x0, x1, x2, 0] narrow, (4^K, 3) int64 wide. On a CUDA
+        device, two kernel launches (the subtrees' roots, then the
+        subtrees), one at K = 1 (the roots are the table)."""
         K = self.lut_k
         if self.device.type == "cpu":
             return self.plain_build_lut()
         shape = (4**K, 3) if self.wide else (4**K, 4)
         out = torch.empty(shape, dtype=self.idx_dtype, device=self.device)
         self._launch("lut_build", "LUT build", K, out.data_ptr())
-        self.n_lut_launches += 1
+        self.n_lut_launches += 2 if K > 1 else 1
         return out
 
     def mem_walk_rows(self, chars: torch.Tensor, valid: torch.Tensor):

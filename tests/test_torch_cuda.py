@@ -96,12 +96,25 @@ def gpu_engines(gpu_engine, toy_index):
 
 @pytest.mark.parametrize("which", ["narrow_lut", "wide_lut"])
 def test_lut_build_kernel_equals_plain(which, gpu_engines):
-    """K3 (narrow) and K6 (wide): the whole K = 11 table, exactly."""
+    """K3 (narrow) and K6 (wide): the whole K = 11 table, exactly, in two
+    launches (the subtrees' roots, then the subtrees)."""
     eng = gpu_engines[which]
-    assert eng.n_lut_launches == 1
+    assert eng.n_lut_launches == 2
     torch.testing.assert_close(eng.lut, eng.plain_build_lut(), rtol=0,
                                atol=0)
     assert eng.lut.dtype == (torch.int64 if eng.wide else torch.int32)
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("k", [1, 4, 5, 8, 12])
+def test_lut_build_kernel_at_other_k(k, wide, gpu_engine, toy_index):
+    """K3 / K6 at K = 1 (the roots alone, one launch), fewer levels than
+    a warp expands (4), one-base roots (5), dead entries (8) and a
+    table past K = 11 (12), exactly."""
+    eng = FMIndexTorch(toy_index, "cuda", lut_k=k, wide=wide)
+    assert eng.n_lut_launches == (2 if k > 1 else 1)
+    torch.testing.assert_close(eng.lut, eng.plain_build_lut(), rtol=0,
+                               atol=0)
 
 
 @pytest.mark.parametrize("which", ["narrow_lut", "wide_lut", "wide"])
@@ -241,7 +254,7 @@ def test_sharded_seed_scan_and_lut_kernels_equal_plain(wide, gpu_engine,
     sfx = "_wide" if wide else ""
     assert eng.launches == {f"seed_scan{sfx}_sharded": 1,
                             f"locate{sfx}_sharded": 0,
-                            f"lut_build{sfx}_sharded": 1,
+                            f"lut_build{sfx}_sharded": 2,
                             **({} if wide else {"mem_walks_sharded": 0})}
 
 
@@ -299,5 +312,5 @@ def test_golden_on_card_mesh(gpu_engine, toy_index, data_dir, golden_dir,
     assert out.getvalue() == (golden_dir / "c4_spliced_mm.sam").read_text()
     assert (tmp_path / "o.tab").read_text() == \
         (golden_dir / "c4_spliced_mm.junctions.tab").read_text()
-    assert all(s["seed_scan_sharded"] >= 1 and s["lut_build_sharded"] == 1
+    assert all(s["seed_scan_sharded"] >= 1 and s["lut_build_sharded"] == 2
                for s in engine.slot_launches)

@@ -4,18 +4,18 @@ the JAX engines: the table against ``fm_jax.build_lut`` and
 ``fm_jax_wide.build_lut_wide``, seed walks started from it against
 ``FMIndexJax(lut_k=4)`` and ``FMIndexJaxWide(lut_k=4)`` (pre-gathered
 LUT states, their default) and against the port's own ``lut_k=0``
-scan, and three golden configs aligned with it."""
-
-import io
+scan, three golden configs aligned with it by the port's own
+``DartAligner``, and K chosen as ``dart_tpu`` chooses it
+(``DART_TPU_LUT``)."""
 
 import numpy as np
 import pytest
 import torch
 
-from dart_tpu.aligner import DartAligner
-from dart_tpu.config import DartConfig
 from dart_tpu.ops import fm_jax, fm_jax_wide
-from dart_tpu_torch.aligner import default_lut_k, make_engine
+from dart_tpu_torch.aligner import DartAligner, default_lut_k, make_engine, run
+from dart_tpu_torch.config import DartConfig
+from dart_tpu_torch.index import load_index
 from dart_tpu_torch.ops.fm_torch import FMIndexTorch
 
 K = 4
@@ -29,6 +29,12 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def port_toy(golden_dir):
+    """The toy index as the port's own loader reads it."""
+    return load_index(str(golden_dir / "index" / "toy"))
 
 
 @pytest.fixture(scope="module")
@@ -150,9 +156,7 @@ GOLDEN3 = {  # three of tests/test_parity.py's configs
 }
 
 
-def assert_golden(name, idx, engine, data_dir, golden_dir, tmp_path):
-    """Golden config ``name`` aligned by DartAligner on ``engine`` gives
-    the golden SAM and junctions.tab."""
+def golden_cfg(name, data_dir, tmp_path) -> DartConfig:
     spec = GOLDEN3[name]
     cfg = DartConfig()
     cfg.read_files_1 = [str(data_dir / f) for f in spec["r1"]]
@@ -162,25 +166,67 @@ def assert_golden(name, idx, engine, data_dir, golden_dir, tmp_path):
     cfg.sj_file = str(tmp_path / "o.tab")
     cfg.output_file = str(tmp_path / "o.sam")
     cfg.silent = True
-    out = io.StringIO()
-    DartAligner(idx, cfg, engine=engine).run(out_stream=out)
-    assert out.getvalue() == (golden_dir / f"{name}.sam").read_text()
-    assert (tmp_path / "o.tab").read_text() == \
+    return cfg
+
+
+def assert_golden_files(name, cfg, golden_dir):
+    assert open(cfg.output_file).read() == \
+        (golden_dir / f"{name}.sam").read_text()
+    assert open(cfg.sj_file).read() == \
         (golden_dir / f"{name}.junctions.tab").read_text()
 
 
+def assert_golden(name, idx, engine, data_dir, golden_dir, tmp_path):
+    """Golden config ``name`` aligned by the port's DartAligner on
+    ``engine`` gives the golden SAM and junctions.tab."""
+    cfg = golden_cfg(name, data_dir, tmp_path)
+    DartAligner(idx, cfg, engine=engine).run()
+    assert_golden_files(name, cfg, golden_dir)
+
+
 @pytest.mark.parametrize("name", sorted(GOLDEN3))
-def test_golden_with_lut(name, toy_index, data_dir, golden_dir, tmp_path,
+def test_golden_with_lut(name, port_toy, data_dir, golden_dir, tmp_path,
                          capsys):
-    """Narrow engine with a K = 8 table (dead entries among them)."""
-    engine = make_engine(toy_index, DartConfig(), "cpu", lut_k=8)
+    """The narrow engine with a K = 8 table (dead entries among them)."""
+    engine = make_engine(port_toy, DartConfig(), "cpu", lut_k=8)
     assert engine.lut_k == 8 and not engine.wide
-    assert_golden(name, toy_index, engine, data_dir, golden_dir, tmp_path)
+    assert_golden(name, port_toy, engine, data_dir, golden_dir, tmp_path)
 
 
-def test_make_engine_lut_choice(toy_index):
+def test_golden_with_env_lut(port_toy, data_dir, golden_dir, tmp_path,
+                             monkeypatch, capsys):
+    """``DART_TPU_LUT=4`` gives ``aligner.run`` on the CPU a K = 4 table,
+    and golden c3 its golden bytes."""
+    monkeypatch.setenv("DART_TPU_LUT", "4")
+    cfg = golden_cfg("c3_spliced", data_dir, tmp_path)
+    assert run(port_toy, cfg, "cpu").engine.lut_k == 4
+    assert_golden_files("c3_spliced", cfg, golden_dir)
+
+
+def test_env_lut_sets_k(toy_index, monkeypatch):
+    """An int of 0 or more in ``DART_TPU_LUT`` is the table's K on any
+    device, as in dart_tpu's make_engine; 0 means no table."""
+    monkeypatch.setenv("DART_TPU_LUT", "4")
+    assert make_engine(toy_index, DartConfig(), "cpu").lut_k == 4
+    assert default_lut_k("cuda") == 4
+    monkeypatch.setenv("DART_TPU_LUT", "16")  # past MAX_LUT_K
+    with pytest.raises(ValueError):
+        make_engine(toy_index, DartConfig(), "cpu")
+
+
+def test_env_lut_zero_and_negative(monkeypatch):
+    """``DART_TPU_LUT=0`` turns the table off on a card; a negative
+    value leaves the default (11 on a card, none on the CPU)."""
+    monkeypatch.setenv("DART_TPU_LUT", "0")
+    assert default_lut_k("cuda") == 0
+    monkeypatch.setenv("DART_TPU_LUT", "-1")
+    assert default_lut_k("cuda") == 11 and default_lut_k("cpu") == 0
+
+
+def test_make_engine_lut_choice(toy_index, monkeypatch):
     """K = 11 on a card, as dart_tpu on an accelerator; none on the CPU,
     where the plain build would cost more than it saves."""
+    monkeypatch.delenv("DART_TPU_LUT", raising=False)
     assert default_lut_k("cuda") == default_lut_k("cuda:0") == 11
     assert default_lut_k("cpu") == 0
     eng = make_engine(toy_index, DartConfig(), "cpu")

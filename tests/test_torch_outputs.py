@@ -1,11 +1,16 @@
-"""Output paths of the aligner on the port's engine (FMIndexTorch on the
-CPU): BAM output, and checkpoint/resume after a crash mid-stream."""
+"""Output paths of the port's own ``DartAligner`` and ``DartConfig`` on
+its engine (FMIndexTorch on the CPU): BAM output, and checkpoint/resume
+after a crash mid-stream. ``dart_tpu`` appears only as what the BAM
+bytes are compared with."""
 
 import pytest
 import torch
 
-from dart_tpu.aligner import DartAligner
-from dart_tpu.config import DartConfig
+import dart_tpu.aligner
+import dart_tpu.config
+from dart_tpu_torch.aligner import DartAligner
+from dart_tpu_torch.config import DartConfig
+from dart_tpu_torch.index import load_index
 from dart_tpu_torch.ops.fm_torch import FMIndexTorch
 
 
@@ -19,14 +24,21 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(scope="module")
+def port_toy(golden_dir):
+    """The toy index as the port's own loader reads it."""
+    return load_index(str(golden_dir / "index" / "toy"))
+
+
 @pytest.mark.parametrize("reads", [["spliced.fa"], ["pe_1.fq", "pe_2.fq"]])
-def test_bam_equal_to_numpy_engine(reads, toy_index, data_dir, tmp_path,
-                                   capsys):
-    """The BAM bytes equal those of dart_tpu's NumPy engine on the same
-    reads (whose records tests/test_bam.py holds against the goldens)."""
+def test_bam_equal_to_numpy_engine(reads, toy_index, port_toy, data_dir,
+                                   tmp_path, capsys):
+    """The port's BAM bytes equal those of dart_tpu's aligner on its
+    NumPy engine on the same reads (whose records tests/test_bam.py
+    holds against the goldens)."""
     out = {}
     for who in ("port", "numpy"):
-        cfg = DartConfig()
+        cfg = DartConfig() if who == "port" else dart_tpu.config.DartConfig()
         cfg.read_files_1 = [str(data_dir / reads[0])]
         cfg.read_files_2 = [str(data_dir / r) for r in reads[1:]]
         cfg.max_mismatch = 5
@@ -36,10 +48,10 @@ def test_bam_equal_to_numpy_engine(reads, toy_index, data_dir, tmp_path,
         cfg.silent = True
         if who == "numpy":
             cfg.engine = "numpy"
-            engine = None
+            dart_tpu.aligner.DartAligner(toy_index, cfg).run()
         else:
-            engine = FMIndexTorch(toy_index, device="cpu")
-        DartAligner(toy_index, cfg, engine=engine).run()
+            DartAligner(port_toy, cfg,
+                        engine=FMIndexTorch(port_toy, device="cpu")).run()
         out[who] = ((tmp_path / f"{who}.bam").read_bytes(),
                     (tmp_path / f"{who}.tab").read_bytes())
     assert out["port"][0][:4] == b"\x1f\x8b\x08\x04"  # BGZF
@@ -57,13 +69,13 @@ def _cfg(data_dir, tmp_path):
     return cfg
 
 
-def test_resume_after_interrupt(toy_index, data_dir, golden_dir, tmp_path,
+def test_resume_after_interrupt(port_toy, data_dir, golden_dir, tmp_path,
                                 capsys):
     """A run that dies in its third chunk resumes from its checkpoint
     and ends with the golden SAM and junction table
     (tests/test_checkpoint.py, on the port's engine)."""
-    al = DartAligner(toy_index, _cfg(data_dir, tmp_path),
-                     engine=FMIndexTorch(toy_index, device="cpu"))
+    al = DartAligner(port_toy, _cfg(data_dir, tmp_path),
+                     engine=FMIndexTorch(port_toy, device="cpu"))
     calls = {"n": 0}
     orig = al.native.process_chunk
 
@@ -78,8 +90,8 @@ def test_resume_after_interrupt(toy_index, data_dir, golden_dir, tmp_path,
         al.run()
     assert (tmp_path / "out.sam.ckpt").exists()
 
-    al2 = DartAligner(toy_index, _cfg(data_dir, tmp_path),
-                      engine=FMIndexTorch(toy_index, device="cpu"))
+    al2 = DartAligner(port_toy, _cfg(data_dir, tmp_path),
+                      engine=FMIndexTorch(port_toy, device="cpu"))
     al2.run()
     assert (tmp_path / "out.sam").read_text() == \
         (golden_dir / "c3_spliced.sam").read_text()

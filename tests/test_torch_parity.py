@@ -1,16 +1,18 @@
-"""The slice as a whole: the nine golden configs aligned by
-dart_tpu.aligner.DartAligner on the port's engine (FMIndexTorch on the
-CPU, which runs the plain PyTorch kernels) give SAM and junctions.tab
-byte-equal to the reference binary's goldens."""
+"""The slice as a whole: the nine golden configs aligned by the port's
+own ``DartAligner`` and ``DartConfig`` on its engine (FMIndexTorch on
+the CPU, which runs the plain PyTorch kernels) and its own native
+pipeline, on the index as the port's loader reads it, give SAM and
+junctions.tab byte-equal to the reference binary's goldens."""
 
 import io
 
 import pytest
 import torch
 
-from dart_tpu.aligner import DartAligner
-from dart_tpu.config import DartConfig
 from dart_tpu_torch import cli
+from dart_tpu_torch.aligner import DartAligner
+from dart_tpu_torch.config import DartConfig
+from dart_tpu_torch.index import load_index
 from dart_tpu_torch.ops.fm_torch import FMIndexTorch
 
 
@@ -22,6 +24,12 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def port_toy(golden_dir):
+    """The toy index as the port's own loader reads it."""
+    return load_index(str(golden_dir / "index" / "toy"))
 
 
 CONFIGS = {  # tests/test_parity.py
@@ -38,7 +46,7 @@ CONFIGS = {  # tests/test_parity.py
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_golden_parity_on_port_engine(name, toy_index, data_dir, golden_dir,
+def test_golden_parity_on_port_engine(name, port_toy, data_dir, golden_dir,
                                       tmp_path, capsys):
     spec = CONFIGS[name]
     cfg = DartConfig()
@@ -52,8 +60,8 @@ def test_golden_parity_on_port_engine(name, toy_index, data_dir, golden_dir,
     cfg.sj_file = str(tmp_path / f"{name}.tab")
     cfg.output_file = str(tmp_path / f"{name}.sam")
     cfg.silent = True
-    engine = FMIndexTorch(toy_index, device="cpu")
-    aligner = DartAligner(toy_index, cfg, engine=engine)
+    engine = FMIndexTorch(port_toy, device="cpu")
+    aligner = DartAligner(port_toy, cfg, engine=engine)
     assert aligner.native is not None
     out = io.StringIO()
     aligner.run(out_stream=out)

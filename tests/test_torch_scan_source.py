@@ -44,11 +44,13 @@ SHIM = r"""
 #define __forceinline__ inline
 #define __restrict__
 #define __launch_bounds__(...)
+#define __shared__
 struct uint4 { uint32_t x, y, z, w; };
 inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
   return {a, b, c, d};
 }
 template <class T> inline T __ldg(const T* p) { return *p; }
+template <class T> inline void __stcs(T* p, T v) { *p = v; }
 inline int __popc(uint32_t x) { return __builtin_popcount(x); }
 inline int __clz(uint32_t x) { return x ? __builtin_clz(x) : 32; }
 inline int __ffsll(long long x) { return __builtin_ffsll(x); }
@@ -57,9 +59,10 @@ template <class T> inline T max(T a, T b) { return a > b ? a : b; }
 struct Dim { unsigned x; };
 static Dim blockIdx, threadIdx, blockDim;
 inline void __syncthreads() {}
+inline void __syncwarp() {}
 """
 
-DRIVER = r"""
+SCAN_LOOP = r"""
 template <class L, bool kLut>
 void scan_all(const void* table, const typename L::I* params,
               const void* lut, int lut_k, const void* buf, int R, int words,
@@ -94,8 +97,9 @@ extern "C" void cpu_seed_scan(const void* table, const void* params,
 """
 
 
-def host_source(text: str) -> str:
-    """The kernel file's device part, with the shim and a CPU driver."""
+def host_source(text: str, loop: str = SCAN_LOOP) -> str:
+    """The kernel file's device part, with the shim and ``loop``, host
+    code that calls it (by default the seed scan's)."""
     cut = text.index("template <class A>\nint launch_seed_scan")
     dev = text[:cut]
     for cuda, cpu in (("#include <cuda_runtime.h>", SHIM),
@@ -103,21 +107,28 @@ def host_source(text: str) -> str:
                        "uint32_t* sreads = nullptr;")):
         assert dev.count(cuda) == 1, cuda
         dev = dev.replace(cuda, cpu)
-    return dev + DRIVER
+    return dev + loop
+
+
+def build_host_lib(tmp_path_factory, name: str, loop: str) -> ctypes.CDLL:
+    """``host_source`` with ``loop``, built with g++ into a library of
+    its own."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to build the kernel source for the CPU")
+    d = tmp_path_factory.mktemp(name)
+    (d / f"{name}.cpp").write_text(host_source(SOURCE.read_text(), loop))
+    cc = subprocess.run([gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-w",
+                         "-o", str(d / f"lib{name}.so"),
+                         str(d / f"{name}.cpp")],
+                        capture_output=True, text=True)
+    assert cc.returncode == 0, cc.stderr
+    return ctypes.CDLL(str(d / f"lib{name}.so"))
 
 
 @pytest.fixture(scope="module")
 def scan_lib(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("no g++ to build the kernel source for the CPU")
-    d = tmp_path_factory.mktemp("scan_source")
-    (d / "scan.cpp").write_text(host_source(SOURCE.read_text()))
-    cc = subprocess.run([gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-w",
-                         "-o", str(d / "libscan.so"), str(d / "scan.cpp")],
-                        capture_output=True, text=True)
-    assert cc.returncode == 0, cc.stderr
-    lib = ctypes.CDLL(str(d / "libscan.so"))
+    lib = build_host_lib(tmp_path_factory, "scan", SCAN_LOOP)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.cpu_seed_scan.argtypes = [vp, vp, vp, i32, vp, i32, i32, i32, vp,
                                   i32]
