@@ -33,7 +33,8 @@ the root of a checkout it:
    100,000 100-bp reads: 70% genomic, 30% spliced, 0.5% mismatches,
    generated from bench.py's seed into ``chip_smoke_work/``) on the
    card with the narrow and with the wide engine, prints wall time,
-   reads/s, set-up seconds and the kernels' launch counts, requires the
+   reads/s, set-up seconds, the kernels' launch counts and the rows of
+   each locate launch (recorded for phase 13), requires the
    two SAMs equal and the first 5,000 reads' SAM and junction table of
    each engine equal to the port's CPU path's (its plain versions);
 5. on the 50 Mbp index (``50mbp_se``: a 30 + 20 Mbp genome, same read
@@ -93,16 +94,23 @@ the root of a checkout it:
     ``torch.profiler`` trace must name the seed-scan kernel; prints the
     kernels' summed time, the seed scans' share of it and the card's
     idle share of the traced window;
-13. ``[diagnosis]``, what bounds the seed scan (``phase_diagnosis``):
-    ``-Xptxas -v`` of every kernel (the seed scans and the K-mer table
-    builds must show no stack and no spill), the latency of one
-    dependent load in and past the L2, the seed scan's time against the
-    reads of a launch, and the dependent loads a read makes (the plain
-    version counts them), with the critical-path floor they give;
+13. ``[diagnosis]``, after phase 6, what bounds the seed scan and the
+    locate (``phase_diagnosis``): ``-Xptxas -v`` of every kernel (the
+    seed scans, the locates and the K-mer table builds must show no
+    stack and no spill), the latency of one dependent load in and past
+    the L2, the seed scan's time against the reads of a launch, and the
+    dependent loads a read makes (the plain version counts them), with
+    the critical-path floor they give; then the locate at the row sets
+    of ``locate_shapes`` (65,536 random rows, the rows of each locate
+    launch of phases 4 and 6, the repeat runs of ``copies_set``): each
+    row's LF steps (the plain version counts them), the floor they give,
+    the bytes bound, and the kernel's time against the whole host call
+    (``locate_diagnosis``);
 14. ``[redesign]``, only where ``chip_smoke_work/parent/fm_kernels.cu``
     holds an earlier kernel source, put there for a measurement call:
-    its seed scans and K-mer table builds against this tree's, in turns
-    (``phase_redesign``).
+    its seed scans, K-mer table builds and locates (at every row set of
+    phase 13, narrow and wide, on one table and on two shards) against
+    this tree's, in turns (``phase_redesign``).
 
 The data sets are generated in ``bench.py``'s steps with the port's own
 index builder; nothing of JAX or of the JAX package ``dart_tpu`` is
@@ -588,6 +596,73 @@ def check_repeats(device: str, shards: int = 1) -> int:
     return err
 
 
+COPIES = (2, 3, 5, 10, 20, 50, 100)  # copies of a segment (repeat runs)
+
+
+def copies_set(device: str):
+    """Repeat runs as the main path sends them to the locate: a 200 kbp
+    genome of random bases (from a seed) that holds a 400-base segment
+    in 2, 3, 5, 10, 20, 50 and 100 copies (a gene family, a segmental
+    duplication), indexed under WORK; 8 reads of 100 bases from each
+    segment, one or two substitutions in half of them. Every seed of
+    such a read occurs once in each copy of its segment, so the engine's
+    seeds (max_dup 100), expanded by ``seeding._expand_occurrences``,
+    hand the locate runs of consecutive rows k0 .. k0 + freq - 1.
+    Returns (index, [the rows of that one locate launch])."""
+    import numpy as np
+
+    from dart_tpu_torch.index import build_index, load_index
+    from dart_tpu_torch.ops.fm_torch import FMIndexTorch
+    from dart_tpu_torch.pipeline.seeding import _expand_occurrences
+
+    d = os.path.join(WORK, "copies")
+    prefix = os.path.join(d, "cp")
+    rng = np.random.default_rng(11)
+    segs = {c: rng.integers(0, 4, 400) for c in COPIES}
+    if not os.path.exists(prefix + ".bwt"):
+        os.makedirs(d, exist_ok=True)
+        order = rng.permutation(np.repeat(COPIES, COPIES))
+        bg = rng.integers(0, 4, 200_000 - 400 * len(order))
+        cuts = np.sort(rng.integers(0, bg.size, len(order)))
+        parts, at = [], 0
+        for c, cut in zip(order, cuts):
+            parts += [bg[at:cut], segs[c]]
+            at = cut
+        seq = "".join("ACGT"[b] for b in np.concatenate(parts + [bg[at:]]))
+        with open(prefix + ".fa", "w") as f:
+            f.write(">cp\n" + "\n".join(seq[i:i + 70] for i in
+                                         range(0, len(seq), 70)) + "\n")
+        build_index(prefix + ".fa", prefix)
+    idx = load_index(prefix)
+    rng = np.random.default_rng(12)
+    reads = []
+    for c in COPIES:
+        for r in range(8):
+            off = int(rng.integers(0, 300))
+            read = segs[c][off:off + 100].copy()
+            if r % 2:
+                at = rng.integers(20, 80, int(rng.integers(1, 3)))
+                read[at] = (read[at] + rng.integers(1, 4, at.size)) % 4
+            reads.append(read)
+    codes = np.stack(reads).astype(np.uint8)
+    eng = FMIndexTorch(idx, device, max_dup_num=100)
+    seeds = eng.seed_reads(codes, np.full(len(codes), 100, np.int32))
+    with recording_locates() as rec:
+        _expand_occurrences(eng, *seeds, len(codes))
+    if len(rec) != 1:
+        raise AssertionError(f"the repeat reads made {len(rec)} locate "
+                             "launches, expected one")
+    return idx, rec
+
+
+def runs_of(rows) -> list:
+    """The lengths of the runs of consecutive rows in a launch's rows."""
+    import numpy as np
+
+    breaks = np.flatnonzero(np.diff(rows) != 1) + 1
+    return np.diff(np.concatenate([[0], breaks, [len(rows)]])).tolist()
+
+
 def fmt_setup(eng) -> str:
     return (f"table {eng.setup_s['table']:.3f} s + LUT "
             f"{eng.setup_s['lut']:.3f} s")
@@ -725,13 +800,37 @@ def phase_goldens(toy, device: str) -> None:
             "the CLI and through the wide engine")
 
 
+@contextlib.contextmanager
+def recording_locates():
+    """The rows of every locate launch that ``FMIndexTorch.locate_submit``
+    makes inside it, as int64 NumPy arrays in launch order. They are
+    copied on the host before the upload, so the run is not made to
+    wait for the card."""
+    import numpy as np
+
+    from dart_tpu_torch.ops.fm_torch import FMIndexTorch
+
+    rec, orig = [], FMIndexTorch.locate_submit
+
+    def locate_submit(self, rows):
+        if rows.shape[0]:
+            rec.append(np.array(rows, dtype=np.int64))
+        return orig(self, rows)
+
+    FMIndexTorch.locate_submit = locate_submit
+    try:
+        yield rec
+    finally:
+        FMIndexTorch.locate_submit = orig
+
+
 def align(idx, ds, out: str, tag: str, device: str, wide: bool,
           mesh: str = "") -> dict:
     """One main-path run over the whole read set, on one engine or, with
     ``mesh``, on a device grid: the engine (and its launch counts, which
     start at 0) is made inside it. Logs and returns wall time, reads/s,
-    set-up seconds and launch counts (and each data group's, on a
-    grid)."""
+    set-up seconds, launch counts (and each data group's, on a grid)
+    and, on one engine, the rows of each locate launch."""
     from dart_tpu_torch.aligner import default_lut_k, run
     from dart_tpu_torch.cli import parse_args
 
@@ -742,7 +841,7 @@ def align(idx, ds, out: str, tag: str, device: str, wide: bool,
                       *(["--mesh", mesh] if mesh else [])])
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()), \
-            contextlib.redirect_stderr(err):
+            contextlib.redirect_stderr(err), recording_locates() as located:
         aligner = run(idx, cfg, device, wide=wide)
     if device == "cuda":
         import torch
@@ -760,6 +859,10 @@ def align(idx, ds, out: str, tag: str, device: str, wide: bool,
         f"({n / wall:.0f} reads/s); set-up {fmt_setup(eng)}; launches "
         + ", ".join(f"{k} {v}" for k, v in launches.items())
         + (f"; per data group {slots}" if slots else ""))
+    if not mesh:
+        log(f"    locate: {eng.n_locate_rows} rows in "
+            f"{eng.n_locate_launches} launches, rows a launch "
+            f"{[len(r) for r in located]}")
     for line in err.getvalue().splitlines():
         if line.startswith("[stats]"):
             log(f"    {line}")
@@ -774,7 +877,8 @@ def align(idx, ds, out: str, tag: str, device: str, wide: bool,
     if aligner.native is None:
         raise AssertionError("the native host pipeline did not load")
     return {"launches": launches, "wall_s": wall, "reads": n,
-            "setup_s": eng.setup_s, "slot_launches": slots}
+            "setup_s": eng.setup_s, "slot_launches": slots,
+            "located": [] if mesh else located}
 
 
 def require_same(out: str, a: str, b: str, what: str) -> None:
@@ -1534,17 +1638,19 @@ def load_stats(loads) -> dict:
             "sum": int(loads.sum()), "warps": warps.shape[0]}
 
 
-def phase_diagnosis(big, ds, device: str) -> dict:
-    """What bounds the seed scan (K1, K4): K1's time at 16,384, 34,464, 65,536 and 262,144 reads of
+def phase_diagnosis(big, ds, device: str, shapes: dict) -> dict:
+    """What bounds the seed scan (K1, K4) and the locate (K2, K5): K1's
+    time at 16,384, 34,464, 65,536 and 262,144 reads of
     8mbp_se (flat in R: the critical path or the tail sets it; linear:
     throughput); each read's dependent table loads, counted by the plain
     version, at the main path's 65,536 reads, with the K-mer table and
     without (narrow) and with it (wide, whose SA is sampled more
     densely); the latency of one dependent load at 20 MiB (in the L2)
     and 128 MiB (past it); the critical-path floor (the longest read's
-    loads times that latency); and ``-Xptxas -v`` of every kernel, which
-    fails the phase, at its end, if a seed scan or a K-mer table build
-    has a stack frame or spills."""
+    loads times that latency); the locate at the row sets of ``shapes``
+    (``locate_diagnosis``); and ``-Xptxas -v`` of every kernel, which
+    fails the phase, at its end, if a seed scan, a locate or a K-mer
+    table build has a stack frame or spills."""
     import numpy as np
     import torch
 
@@ -1553,7 +1659,7 @@ def phase_diagnosis(big, ds, device: str) -> dict:
     res = {"ptxas": ptxas_table(os.path.join(HERE, FM_SOURCE))}
     log_ptxas(res["ptxas"], "this tree")
     local = [r["name"] for r in res["ptxas"]
-             if ("seed_scan" in r["name"] or "lut_" in r["name"])
+             if any(k in r["name"] for k in ("seed_scan", "lut_", "locate"))
              and (r.get("stack") or r.get("spill_st") or r.get("spill_ld"))]
     res["chase_ns"] = {mb: chase_ns(mb, device) for mb in (20, 128)}
     log(f"  dependent-load latency (pointer chase, one thread): "
@@ -1569,7 +1675,7 @@ def phase_diagnosis(big, ds, device: str) -> dict:
         res["k1_ms_by_R"][R] = ms = time_ms(lambda: eng.seed_scan(
             t, words, S), 5)
         log(f"  K1 (narrow, K={LUT_K}) at R={R}: {ms:.4f} ms, "
-            f"{1e3 * ms / R:.3f} ns a read")
+            f"{1e6 * ms / R:.3f} ns a read")
     t, words, S = pack(codes[:MAIN_R], rlens[:MAIN_R], device)
     wide = FMIndexTorch(big, device, lut_k=LUT_K, wide=True)
     for tag, e in (("lut", eng), ("no_lut", without_lut(eng)),
@@ -1590,8 +1696,119 @@ def phase_diagnosis(big, ds, device: str) -> dict:
             f"floor {floor_us:.2f} us; all reads by kind {st['by_kind']}, "
             f"the longest read [extend, locate, compare, lut, walks] "
             f"{st['longest_by_kind']}")
+    res["locate"] = locate_diagnosis(shapes, device, res["chase_ns"])
+    res["shapes"] = shapes
     if local:
         raise AssertionError(f"local memory (stack or spills) in {local}")
+    return res
+
+
+def locate_shapes(indexes: dict, runs: dict, seed: int) -> dict:
+    """The row sets the locate is timed at: {name: (index, {wide: [the
+    rows of each launch]})}. For each index, 65,536 random rows (one
+    launch) and the rows each locate launch of its main-path run got
+    (phases 4 and 6, narrow and wide); then the repeat runs
+    (``copies_set``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shapes = {}
+    for what, idx in indexes.items():
+        rows = rng.integers(0, idx.seq_len, MAIN_R)
+        shapes[f"{what} random"] = (idx, {False: [rows], True: [rows]})
+        main = {w: runs[what]["wide" if w else "narrow"]["located"]
+                for w in (False, True)}
+        if main[False] or main[True]:
+            shapes[f"{what} main path"] = (idx, main)
+        else:
+            log(f"  the {what} main-path runs located no rows")
+    idx, rec = copies_set("cuda")
+    shapes["repeat runs"] = (idx, {False: rec, True: rec})
+    return shapes
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Mean host wall time in ms of fn() over reps runs after one
+    warm-up; fn must end in a synchronisation."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def locate_diagnosis(shapes: dict, device: str, chase: dict) -> dict:
+    """What bounds the locate (K2 narrow, K5 wide) at each row set of
+    ``shapes``: each row's LF steps, counted by the plain version (mean,
+    p99, max); the critical-path floor of each launch, (its longest walk
+    + 1) times one dependent load's latency at the table's size, and at
+    the size of its Occ rows alone (the walks read nothing else); its
+    bytes bound; the kernel's time (card only, launches queued) against
+    the whole host call ``FMIndexTorch.locate`` makes on the main path
+    (upload, launch, download, wait); and the distinct Occ rows the
+    lanes of a warp read at their first step."""
+    import numpy as np
+    import torch
+
+    from dart_tpu_torch.ops.fm_torch import FMIndexTorch
+
+    res = {}
+    for what, (idx, by_width) in shapes.items():
+        for wide, launches in by_width.items():
+            eng = FMIndexTorch(idx, device, wide=wide)
+            name = "locate_wide" if wide else "locate"
+            # the whole table's size, and the Occ rows' alone (the rows a
+            # walk reads before its one sample)
+            mb = -(-eng.table.numel() * 4 // 2**20)
+            occ_mb = -(-eng.ref_off * eng.table.shape[1] * 4 // 2**20)
+            for m in (mb, occ_mb):
+                if m not in chase:
+                    chase[m] = chase_ns(m, device)
+            out = []
+            for i, rows in enumerate(launches):
+                t = torch.from_numpy(rows.astype(
+                    np.int64 if wide else np.int32)).to(device)
+                steps = torch.zeros(t.numel(), dtype=torch.int64,
+                                    device=device)
+                check_equal(f"{name} ({what})", eng.locate_rows(t),
+                            eng.plain_locate(t, lf_steps=steps))
+                st = steps.double()
+                kk = rows - (rows > eng.primary)
+                occ = kk >> (7 if wide else 6)
+                pad = (-len(occ)) % 32
+                warps = np.concatenate([occ, np.full(pad, -1)]).reshape(
+                    -1, 32)
+                first = np.mean([len(set(w[w >= 0])) for w in warps])
+                r = {"rows": len(rows), "runs": len(runs_of(rows)),
+                     "mean": float(st.mean()),
+                     "p99": float(st.quantile(0.99)),
+                     "max": int(steps.max()), "table_mib": mb,
+                     "chase_ns": chase[mb],
+                     "floor_ms": (int(steps.max()) + 1) * chase[mb] / 1e6,
+                     "occ_mib": occ_mb,
+                     "floor_occ_ms": (int(steps.max()) + 1)
+                     * chase[occ_mb] / 1e6,
+                     "first_rows_a_warp": float(first),
+                     "ms": time_ms(lambda: eng.locate_rows(t), 20),
+                     "host_ms": host_ms(lambda: eng.locate(rows)),
+                     **bytes_bound(2 * t.numel() * t.element_size()
+                                   + touched_bytes(
+                                       eng, lambda v: v.plain_locate(t)))}
+                out.append(r)
+                log(f"  {name}, {what}"
+                    + (f" launch {i}" if len(launches) > 1 else "")
+                    + f": {r['rows']} rows ({r['runs']} runs), LF steps "
+                    f"mean {r['mean']:.2f}, p99 {r['p99']:.0f}, max "
+                    f"{r['max']}; floor ({r['max']} + 1) x "
+                    f"{chase[mb]:.1f} ns ({mb} MiB) = "
+                    f"{1e3 * r['floor_ms']:.2f} us ({chase[occ_mb]:.1f} ns "
+                    f"at the Occ rows' {occ_mb} MiB: "
+                    f"{1e3 * r['floor_occ_ms']:.2f} us), bytes bound "
+                    f"{1e3 * r['bound_ms']:.2f} us; kernel "
+                    f"{1e3 * r['ms']:.2f} us, whole host call "
+                    f"{1e3 * r['host_ms']:.1f} us; first-step Occ rows a "
+                    f"warp {first:.1f}")
+            res[f"{name} {what}"] = out
     return res
 
 
@@ -1626,6 +1843,54 @@ def lut_call(lib, eng, out):
     return out
 
 
+def loc_call(lib, eng, t, out):
+    """One locate launch of ``lib``'s C entry for ``eng``'s layout and
+    table access, on the rows ``t``, into ``out``, as
+    ``FMIndexTorch.locate_rows`` makes it (the C interface is the same
+    in every version)."""
+    fn = getattr(lib, f"dart_fm_locate{eng._sfx}")
+    rc = fn(*eng._tab, eng._params_ptr(), t.data_ptr(), t.numel(),
+            out.data_ptr(), eng._stream())
+    if rc:
+        raise RuntimeError(f"locate launch failed: CUDA error {rc}")
+    return out
+
+
+def redesign_locate(old, shapes: dict, device: str) -> dict:
+    """The parent's locate against this tree's, in turns, at every row
+    set of ``shapes`` (``locate_shapes``), narrow and wide, on one table
+    and on two shards of it (index=2); both held equal to the plain
+    version."""
+    import numpy as np
+    import torch
+
+    from dart_tpu_torch.ops.fm_torch import FMIndexTorch
+
+    times = {}
+    for what, (idx, by_width) in shapes.items():
+        for wide, launches in by_width.items():
+            for shards in (1, 2):
+                eng = (FMIndexTorch(idx, device, wide=wide) if shards == 1
+                       else sharded(idx, device, shards, wide=wide))
+                for i, rows in enumerate(launches):
+                    t = torch.from_numpy(rows.astype(
+                        np.int64 if wide else np.int32)).to(device)
+                    tag = (f"{what} locate{'_wide' if wide else ''}"
+                           + ("" if shards == 1 else f", index={shards}")
+                           + (f", launch {i}" if len(launches) > 1 else "")
+                           + f" ({len(rows)} rows)")
+                    want = eng.plain_locate(t)
+                    out = torch.empty_like(t)
+                    check_equal(f"old {tag}", loc_call(old, eng, t, out),
+                                want)
+                    check_equal(f"new {tag}", eng.locate_rows(t), want)
+                    times[tag] = turns(
+                        tag, lambda: loc_call(old, eng, t, out),
+                        lambda: eng.locate_rows(t))
+                del eng
+    return times
+
+
 def redesign_lut(old, indexes: dict, device: str) -> dict:
     """The parent's K-mer table build against this tree's at K = 11, in
     turns, on each index, narrow and wide, on one table and on two
@@ -1653,7 +1918,7 @@ def redesign_lut(old, indexes: dict, device: str) -> dict:
     return times
 
 
-def phase_redesign(indexes: dict, device: str) -> dict:
+def phase_redesign(indexes: dict, shapes: dict, device: str) -> dict:
     """The parent's kernels (``chip_smoke_work/parent/fm_kernels.cu``,
     put there for a measurement call) against this tree's, in one call
     on one card: its ``-Xptxas -v``, then at 8 and 50 Mbp the seed
@@ -1677,8 +1942,8 @@ def phase_redesign(indexes: dict, device: str) -> dict:
     old = build.typed(ctypes.CDLL(build.build(parent, ("fm_kernels.cu",))[0]))
     res = {"ptxas_old": ptxas_table(os.path.join(parent, "fm_kernels.cu")),
            "times": {}}
-    log_ptxas(res["ptxas_old"], "parent", "seed_scan")
-    log_ptxas(res["ptxas_old"], "parent", "lut_")
+    for only in ("seed_scan", "lut_", "locate"):
+        log_ptxas(res["ptxas_old"], "parent", only)
     for what, (idx, fq) in indexes.items():
         codes, rlens = read_fastq(fq, MAIN_R)
         t, words, S = pack(codes, rlens, device)
@@ -1713,6 +1978,7 @@ def phase_redesign(indexes: dict, device: str) -> dict:
             lambda: eng.seed_scan(t, words, S))
     del eng
     res["lut_times"] = redesign_lut(old, indexes, device)
+    res["locate_times"] = redesign_locate(old, shapes, device)
     return res
 
 
@@ -1881,7 +2147,6 @@ def main() -> int:
             big = load_index(ds["prefix"])
             phase("kernels", lambda: phase_kernels(
                 toy, big, ds, "cuda", 4096, 1 << 16, MAIN_R, 20260816))
-            phase("diagnosis", lambda: phase_diagnosis(big, ds, "cuda"))
             phase("goldens", lambda: phase_goldens(toy, "cuda"))
             phase("scale", lambda: phase_scale(big, ds, "cuda", N_PARITY))
             phase("nw", lambda: phase_nw(big, ds["prefix"], ds["fq"][0],
@@ -1903,10 +2168,17 @@ def main() -> int:
             phase("kernels50", lambda: phase_kernels50(big50, ds50, "cuda",
                                                        20261016))
             phase("scale50", lambda: phase_scale50(big50, ds50, "cuda"))
-            if "dataset" in state:
+            if {"scale", "scale50"} <= set(state):
+                phase("diagnosis", lambda: phase_diagnosis(
+                    big, ds, "cuda", locate_shapes(
+                        {"8 Mbp": big, "50 Mbp": big50},
+                        {"8 Mbp": state["scale"],
+                         "50 Mbp": state["scale50"]}, 20261020)))
+            if "diagnosis" in state:
                 phase("redesign", lambda: phase_redesign(
                     {"8 Mbp": (big, ds["fq"][0]),
-                     "50 Mbp": (big50, ds50["fq"][0])}, "cuda"))
+                     "50 Mbp": (big50, ds50["fq"][0])},
+                    state["diagnosis"]["shapes"], "cuda"))
     finally:
         if gen50.poll() is None:
             gen50.kill()

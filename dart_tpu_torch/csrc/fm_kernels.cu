@@ -41,7 +41,9 @@
 // The locate and the MEM walk answer latency with parallelism: one thread
 // per row to locate, per MEM-walk task, a plain sequential loop in each
 // thread, 128 threads a block, so that tens of thousands of independent
-// gathers are in flight at once.
+// gathers are in flight at once. Past the first steps few walks are left,
+// and the locate's step is built for the latency of its chain (at
+// locate_kernel).
 //
 // The seed scan (K1 narrow, K4 wide) was on the TPU one vectorised
 // automaton over a chunk's reads: every lane took the same step, a merged
@@ -522,36 +524,6 @@ __device__ __forceinline__ typename L::I lf_row(
          count_base<L>(v, lo + 1, (uint32_t)c * 0x55555555u);
 }
 
-// The same, loading the row. Row `primary` maps to 0.
-template <class A, class L = typename A::Layout>
-__device__ __forceinline__ typename L::I lf_step(
-    const A& a, const FmParams<typename L::I>& p, typename L::I k) {
-  if (k == p.primary) return 0;
-  uint4 v[L::kVecs];
-  load_row(a, (size_t)((k - (k > p.primary)) >> L::kOccShift), v);
-  return lf_row<L>(p, v, k);
-}
-
-template <class A, class L = typename A::Layout>
-__device__ __forceinline__ typename L::I sa_sample(
-    const A& a, const FmParams<typename L::I>& p, typename L::I k) {
-  return L::sample(a, p.sad_off, sa_div(p, k));
-}
-
-// SA position of row k: LF-walk to a sampled row, add its sample. A walk
-// on a valid table ends within seq_len steps; the bound only keeps a
-// corrupt table from spinning a thread forever.
-template <class A, class L = typename A::Layout>
-__device__ __forceinline__ typename L::I locate_row(
-    const A& a, const FmParams<typename L::I>& p, typename L::I k) {
-  typename L::I steps = 0;
-  while (sa_rem(p, k) != 0 && steps <= p.seq_len) {
-    k = lf_step(a, p, k);
-    ++steps;
-  }
-  return steps + sa_sample(a, p, k);
-}
-
 // Word w (0 .. 4 kVecs - 1, at run time) of a loaded row, by selects.
 template <class L>
 __device__ __forceinline__ uint32_t row_word(const uint4 (&v)[L::kVecs],
@@ -942,15 +914,144 @@ seed_scan_kernel(A a, FmParams<typename A::Layout::I> p,
   o[0] = n;
 }
 
-template <class A>
+// The SA locate (K2 narrow, K5 wide; replaces fm_jax.py::_locate_kernel
+// and fm_jax_wide.py::_locate_kernel_wide): the SA position of each row
+// (bwt_sa), one thread a row, LF-walking it to a sampled row and adding
+// the sample.
+//
+// What bounds it: a walk's length is geometric with mean sa_intv - 1 (the
+// samples are taken by row, as in BWA), so a launch lasts as long as its
+// longest walk (85 steps among 65,536 random rows at an interval of 8), and
+// each step is one dependent Occ-row load plus the arithmetic from that
+// row's arrival to the next row's address. The bytes are few (one 32- or
+// 64-byte row a step); after the first few steps few warps are left, and
+// the card waits on that chain. So the step is built to make it short:
+//
+// - the interval's kind is settled once a launch (SaGrid's kPow2): a
+//   power of two is tested with a mask and divided with a shift, any other
+//   interval divides;
+// - what depends on kk = k - (k > primary) alone (the row to load, kk's
+//   place in it, the count masks) is worked out while the row is on its
+//   way;
+// - once it arrives, the base c at lo, then the bases equal to c among
+//   the row's first lo + 1, two BWT words a popcount (count_pair's
+//   packing), and L2[c] + Occ_row[c] + that count;
+// - row primary (which maps to row 0) is read like any other and its
+//   result dropped, so no lane branches.
+//
+// Rows are taken in the order given, lane i on row i: lanes walking the
+// consecutive rows of one seed's interval (the main path's repeat runs)
+// start in one Occ row and often stay in neighbouring ones, and their
+// loads of one 32-byte sector in one instruction are served as one.
+
+// The rows sampled in the SA: row k holds a sample when k % intv == 0, and
+// that sample is number k / intv.
+template <class I, bool kPow2>
+struct SaGrid {
+  I intv;
+  int shift;  // log2(intv) when kPow2
+  __device__ __forceinline__ bool sampled(I k) const {
+    if constexpr (kPow2)
+      return (k & (intv - 1)) == 0;
+    else
+      return k % intv == 0;
+  }
+  __device__ __forceinline__ I index(I k) const {
+    if constexpr (kPow2)
+      return k >> shift;
+    else
+      return k / intv;
+  }
+};
+
+// The grid of interval intv (> 0) for either kind; kPow2 is the caller's
+// test of intv.
+template <class I, bool kPow2>
+SaGrid<I, kPow2> sa_grid(I intv) {
+  return {intv, kPow2 ? __builtin_ctzll((unsigned long long)intv) : 0};
+}
+
+template <class I>
+bool is_pow2(I intv) {
+  return (intv & (intv - 1)) == 0;
+}
+
+// The row of the table that holds stored-BWT position kk >= 0 (unsigned,
+// so that the address is one multiply-add).
+template <class L>
+__device__ __forceinline__ size_t occ_row_of(typename L::I kk) {
+  if constexpr (sizeof(typename L::I) == 4)
+    return (unsigned)kk >> L::kOccShift;
+  else
+    return (unsigned long long)kk >> L::kOccShift;
+}
+
+// One LF step of bwt_sa (bwt_invPsi) from row k: the row of the suffix one
+// text position earlier, L2[c] + Occ(c, kk) with c the stored BWT base at
+// kk = k - (k > primary); 0 from row primary. The row of kk is a row of
+// the table even at k == primary (kk <= seq_len), so it is read there too.
+//
+// Pair q of a row's BWT words (words 2q and 2q + 1, bases 32q .. 32q + 31)
+// is packed into a plane of high bits and one of low bits, as count_pair
+// packs them; flipped where base c has a 0 bit, their AND marks the bases
+// equal to c, so one popcount counts two words. The pairs before kk's are
+// counted whole and those after it not at all; kk's own pair keeps its
+// bases up to kk, the top 2 (lo % 32 + 1) bits of its 64, one shift. The
+// popcounts run at a quarter of the ALU's rate, so a step takes one a pair
+// (two narrow, four wide), not three for the counts of all four bases.
+template <class A, class L = typename A::Layout>
+__device__ __forceinline__ typename L::I lf_next(
+    const A& a, const FmParams<typename L::I>& p, typename L::I k) {
+  using I = typename L::I;
+  constexpr uint32_t kEven = 0x55555555u;
+  const I kk = k - (I)(k > p.primary);
+  uint4 v[L::kVecs];
+  load_row(a, occ_row_of<L>(kk), v);
+  // from kk alone, while the row is on its way
+  const int lo = (int)(kk & ((1 << L::kOccShift) - 1));
+  const unsigned long long m = ~0ull << (62 - 2 * (lo & 31));
+  const uint32_t part =
+      ((uint32_t)(m >> 32) & kEven) | ((uint32_t)m & ~kEven);
+  const int sh = 2 * (15 - (lo & 15));
+  // then from the row: the base, and the bases equal to it
+  const int c = (int)(bwt_word<L>(v, lo >> 4) >> sh) & 3;
+  const uint32_t fh = c & 2 ? 0u : ~0u, fl = c & 1 ? 0u : ~0u;
+  int n = 0;
+#pragma unroll
+  for (int q = 0; q < L::kVecs; ++q) {  // kVecs pairs of words
+    const uint4& b = v[L::kVecs / 2 + q / 2];
+    const uint32_t u = q & 1 ? b.z : b.x, w = q & 1 ? b.w : b.y;
+    const uint32_t keep = q < (lo >> 5) ? ~0u : q == (lo >> 5) ? part : 0u;
+    const uint32_t hi = ((u >> 1) & kEven) | (w & ~kEven);
+    const uint32_t lw = (u & kEven) | ((w << 1) & ~kEven);
+    n += __popc((hi ^ fh) & (lw ^ fl) & keep);
+  }
+  const I l2c = c & 2 ? (c & 1 ? p.L2[3] : p.L2[2])
+                      : (c & 1 ? p.L2[1] : p.L2[0]);
+  const I next = l2c + L::occ(v, c) + n;
+  return k == p.primary ? (I)0 : next;
+}
+
+// One thread a row: out[i] = SA[rows[i]]. A walk on a valid table ends
+// within seq_len steps; the bound only keeps a corrupt table from spinning
+// a thread forever.
+template <class A, bool kPow2>
 __global__ void __launch_bounds__(kThreads)
 locate_kernel(A a, FmParams<typename A::Layout::I> p,
+              SaGrid<typename A::Layout::I, kPow2> g,
               const typename A::Layout::I* __restrict__ rows,
               typename A::Layout::I n,
               typename A::Layout::I* __restrict__ out) {
-  using I = typename A::Layout::I;
+  using L = typename A::Layout;
+  using I = typename L::I;
   const I i = (I)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = locate_row(a, p, rows[i]);
+  if (i >= n) return;
+  I k = __ldg(rows + i), steps = 0;
+  while (!g.sampled(k) && steps <= p.seq_len) {
+    k = lf_next(a, p, k);
+    ++steps;
+  }
+  out[i] = steps + L::sample(a, p.sad_off, g.index(k));
 }
 
 // The K-mer table build (K3 narrow, K6 wide; key = base-4, first base most
@@ -1214,14 +1315,27 @@ int launch_seed_scan(A a, const typename A::Layout::I* params,
   return (int)cudaGetLastError();
 }
 
+template <class A, bool kPow2>
+void launch_locate_grid(A a, const FmParams<typename A::Layout::I>& p,
+                        const void* rows, typename A::Layout::I n,
+                        void* out, cudaStream_t s) {
+  using I = typename A::Layout::I;
+  locate_kernel<A, kPow2><<<(unsigned)((n + kThreads - 1) / kThreads),
+                            kThreads, 0, s>>>(
+      a, p, sa_grid<I, kPow2>(p.sa_intv), static_cast<const I*>(rows), n,
+      static_cast<I*>(out));
+}
+
+// The interval's kind is settled here, once a launch.
 template <class A>
 int launch_locate(A a, const typename A::Layout::I* params, const void* rows,
                   typename A::Layout::I n, void* out, void* stream) {
-  using I = typename A::Layout::I;
-  locate_kernel<A><<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      a, make_params(params), static_cast<const I*>(rows), n,
-      static_cast<I*>(out));
+  const auto p = make_params(params);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (is_pow2(p.sa_intv))
+    launch_locate_grid<A, true>(a, p, rows, n, out, s);
+  else
+    launch_locate_grid<A, false>(a, p, rows, n, out, s);
   return (int)cudaGetLastError();
 }
 

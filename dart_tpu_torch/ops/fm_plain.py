@@ -197,10 +197,15 @@ def mem_walks_plain(table: torch.Tensor, L2: torch.Tensor,
 
 
 def locate_plain(table: torch.Tensor, L2: torch.Tensor, rows: torch.Tensor,
-                 *, primary: int, sa_intv: int, sad_off: int) -> torch.Tensor:
+                 *, primary: int, sa_intv: int, sad_off: int,
+                 lf_steps: torch.Tensor | None = None) -> torch.Tensor:
     """SA positions of BWT ``rows`` (bwt_sa): LF-walk each row to a
     sampled row (``primary`` maps to row 0), then add the sample read
-    from the table's sample rows. -> (N,) int32 narrow, int64 wide."""
+    from the table's sample rows. -> (N,) int32 narrow, int64 wide.
+
+    ``lf_steps``, an (N,) int64 tensor on ``rows``' device, receives
+    each row's LF steps: the dependent Occ-row loads a thread that walks
+    the row makes before it reads the sample."""
     L2 = L2.long()
     sh = _occ_shift(table)
     k = rows.long().clone()
@@ -221,6 +226,8 @@ def locate_plain(table: torch.Tensor, L2: torch.Tensor, rows: torch.Tensor,
         n_c = _gather1(occ, c) + ((bases == c[:, None]) & upto).sum(dim=1)
         k[act] = torch.where(ka == primary, 0, L2[c] + n_c)
         steps[act] += 1
+    if lf_steps is not None:
+        lf_steps.copy_(steps)
     srow = k // sa_intv
     sample = _sample_at(_u32(table[sad_off + (srow >> 3)]), srow & 7)
     return (steps + sample).to(torch.int64 if _is_wide(table)

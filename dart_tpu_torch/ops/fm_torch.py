@@ -81,6 +81,7 @@ class FMIndexTorch:
         self.lut_k = int(lut_k)
         self.n_seed_launches = 0
         self.n_locate_launches = 0
+        self.n_locate_rows = 0  # rows located by the locate launches
         self.n_lut_launches = 0
         self.n_mem_walks_launches = 0
         t0 = time.perf_counter()
@@ -240,6 +241,7 @@ class FMIndexTorch:
             self._launch("locate", "locate", rows.data_ptr(), rows.numel(),
                          out.data_ptr())
             self.n_locate_launches += 1
+            self.n_locate_rows += rows.numel()
         return out
 
     def build_lut(self) -> torch.Tensor:
@@ -299,10 +301,13 @@ class FMIndexTorch:
             seq_len=self.seq_len, max_dup=self.max_dup_num, lut=self.lut,
             lut_k=self.lut_k, loads=loads)
 
-    def plain_locate(self, rows: torch.Tensor) -> torch.Tensor:
-        """The plain PyTorch version of ``locate_rows`` on any device."""
+    def plain_locate(self, rows: torch.Tensor,
+                     lf_steps: torch.Tensor | None = None) -> torch.Tensor:
+        """The plain PyTorch version of ``locate_rows`` on any device
+        (``lf_steps`` as ``fm_plain.locate_plain`` takes it)."""
         return locate_plain(self.table, self.L2, rows, primary=self.primary,
-                            sa_intv=self.sa_intv, sad_off=self.sad_off)
+                            sa_intv=self.sa_intv, sad_off=self.sad_off,
+                            lf_steps=lf_steps)
 
     def plain_build_lut(self) -> torch.Tensor:
         """The plain PyTorch version of ``build_lut`` on any device."""

@@ -166,6 +166,53 @@ def test_wide_locate_kernel_carries_64_bits(gpu_engines, toy_index):
                                atol=0)
 
 
+@pytest.fixture(scope="module")
+def every12_index(tmp_path_factory, data_dir):
+    """The toy genome indexed by the port's builder with SA samples every
+    12 rows: not a power of two, so the locate walks on the division
+    grid."""
+    from dart_tpu_torch.index import build_index, load_index
+
+    prefix = str(tmp_path_factory.mktemp("every12") / "toy")
+    build_index(str(data_dir / "toy.fa"), prefix, sad_intv=12)
+    return load_index(prefix)
+
+
+def locate_row_set(idx, kind: str) -> np.ndarray:
+    """65,536 random rows, or runs of consecutive rows k0 .. k0 + freq - 1
+    (freq 2 .. 100, one across the primary row) as the main path's
+    occurrence expansion hands them to the locate."""
+    rng = np.random.default_rng(8)
+    if kind == "random":
+        return rng.integers(0, idx.seq_len + 1, 65536)
+    runs = [np.arange(idx.primary - 3, idx.primary + 4)]
+    for f in (2, 3, 5, 10, 20, 50, 100) * 4:
+        k0 = int(rng.integers(0, idx.seq_len + 1 - f))
+        runs.append(np.arange(k0, k0 + f))
+    return np.concatenate(runs)
+
+
+@pytest.mark.parametrize("kind", ["random", "runs"])
+@pytest.mark.parametrize("which", ["toy", "every12"])
+@pytest.mark.parametrize("shards", [1, 3], ids=["flat", "index3"])
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_locate_kernel_rows_and_grids(wide, shards, which, kind, gpu_engine,
+                                      toy_index, every12_index):
+    """K2 / K5, Flat and Sharded, on 65,536 random rows and on repeat
+    runs, on the toy index (samples every 32 rows: the mask-and-shift
+    grid) and every 12 rows (the division grid): equal to the plain
+    version, one launch counting its rows."""
+    idx = toy_index if which == "toy" else every12_index
+    eng = (FMIndexTorch(idx, "cuda", wide=wide) if shards == 1
+           else sharded_engine(idx, shards, wide=wide))
+    assert eng.sa_intv == (32 if which == "toy" else 12)
+    rows = locate_row_set(idx, kind)
+    t = torch.from_numpy(rows.astype(np.int64 if wide else np.int32)).cuda()
+    got = eng.locate_rows(t)
+    torch.testing.assert_close(got, eng.plain_locate(t), rtol=0, atol=0)
+    assert eng.n_locate_launches == 1 and eng.n_locate_rows == len(rows)
+
+
 def test_mem_walks_kernel_equals_plain(gpu_engine, toy_index):
     """K8 on a task from every genome position, 64 bases, with 1%
     substitutions and N bases and the genome's end as invalid tails."""
