@@ -22,9 +22,13 @@ the root of a checkout it:
    a repeat into unique sequence) at max_dup 0, 1 and 100, against the
    plain scan run on the CPU; the K-mer table builds, whole, narrow and
    wide, at K = 11 on the 8 Mbp index and at K = 1, 4, 8, 11 and 12 on
-   the toy index (one launch at K = 1, two from K = 2 on); then times
-   every kernel and its plain version at the main path's shapes (65536
-   reads of 128 padded bases; 65536 rows; one K = 11 table);
+   the toy index (one launch at K = 1, two from K = 2 on); the seed
+   scans (narrow with the K = 11 table and without, wide with it) on
+   toy reads of 1,000 to 65,535 bases, which a block reads in place
+   (past ~1,000 bases they do not fit its shared memory), against the
+   plain scan run on the CPU in a child process from the start; then
+   times every kernel and its plain version at the main path's shapes
+   (65536 reads of 128 padded bases; 65536 rows; one K = 11 table);
 3. runs the nine golden configs through ``dart-tpu-torch --device
    cuda`` (narrow engine, K-mer table on) and through ``DartAligner``
    with the wide engine forced, and requires SAM and ``junctions.tab``
@@ -66,7 +70,11 @@ the root of a checkout it:
    occurrences equal to the engine's own seed scan's; runs
    ``dart_tpu_torch.entry``'s forward step (its other path) on the card
    against its plain run; times kernel and plain version at
-   65,536 x 128.
+   65,536 x 128 (and the kernel on the same tasks padded past its
+   staging budget, read in place), and the kernel at the task sets of
+   ``walk_shapes`` on the toy and 8 Mbp indexes: the seeding path's
+   409,600 x 100, ``entry()``'s 256 x 96, a 64-base task from every toy
+   genome position.
 
 9. ``[mesh]``, the device grid (``--mesh``): holds each ``Sharded``
    kernel (the FM kernels reading a range-sharded table, one allocation
@@ -105,12 +113,20 @@ the root of a checkout it:
     launch of phases 4 and 6, the repeat runs of ``copies_set``): each
     row's LF steps (the plain version counts them), the floor they give,
     the bytes bound, and the kernel's time against the whole host call
-    (``locate_diagnosis``);
+    (``locate_diagnosis``); then the MEM walk at the task sets of
+    ``walk_shapes`` (phase 8's and, also at 50 Mbp, 65,536 x 128):
+    each task's extension steps (the plain version counts them), what
+    divergence in a warp costs, the floor, the bytes bound, the kernel
+    against the whole host call (``walks_diagnosis``), and the kernel
+    held equal to the plain version there on both branches, on one
+    table and at index=2 and 3 (``check_walk_shapes``; a stack or
+    spills in a MEM walk fail the phase too);
 14. ``[redesign]``, only where ``chip_smoke_work/parent/fm_kernels.cu``
     holds an earlier kernel source, put there for a measurement call:
-    its seed scans, K-mer table builds and locates (at every row set of
-    phase 13, narrow and wide, on one table and on two shards) against
-    this tree's, in turns (``phase_redesign``).
+    its seed scans, K-mer table builds, locates (at every row set of
+    phase 13, narrow and wide, on one table and on two shards) and MEM
+    walks (at every task set of phase 13, on one table and on two
+    shards) against this tree's, in turns (``phase_redesign``).
 
 The data sets are generated in ``bench.py``'s steps with the port's own
 index builder; nothing of JAX or of the JAX package ``dart_tpu`` is
@@ -130,9 +146,10 @@ kernels, at index=2 for the sharded ones), its bound (the bytes it
 must move at the card's memory rate: inputs once, outputs once, and the
 table rows and K-mer entries this run's data reads, once each) and its
 library call (none: no one PyTorch call computes any of these
-functions). The last line is ``{"ok":
-true, "device": {...}}``; it is printed only when every phase passed,
-and the exit code is 0 only then.
+functions); the MEM walk's entry adds its floor at its timed set
+(phase 13) and its launches on each of its paths. The last line is
+``{"ok": true, "device": {...}}``; it is printed only when every phase
+passed, and the exit code is 0 only then.
 """
 
 from __future__ import annotations
@@ -429,9 +446,10 @@ def scan_bound(eng, t, words: int, S: int) -> dict:
 
 
 def phase_kernels(toy, big, ds, device: str, n_scan: int, n_rows: int,
-                  main_r: int, seed: int) -> dict:
-    """Kernel vs plain on the card, exact, narrow and wide; then every
-    kernel and its plain version timed on the 8 Mbp index."""
+                  main_r: int, seed: int, long_proc) -> dict:
+    """Kernel vs plain on the card, exact, narrow and wide (the seed
+    scans also on long reads, ``check_long_reads`` of ``long_proc``);
+    then every kernel and its plain version timed on the 8 Mbp index."""
     import numpy as np
     import torch
 
@@ -514,6 +532,9 @@ def phase_kernels(toy, big, ds, device: str, n_scan: int, n_rows: int,
     err = check_repeats(device)
     note("seed_scan", err)
     note("seed_scan_wide", err)
+    err = check_long_reads(long_proc, toy, device)
+    note("seed_scan", err)
+    note("seed_scan_wide", err)
 
     if device == "cuda":
         times = main_shape_times(engs, codes[:main_r], rlens[:main_r], rng,
@@ -594,6 +615,89 @@ def check_repeats(device: str, shards: int = 1) -> int:
         "last-base mismatch, N, tandem, into unique) at max_dup 0, 1, 100, "
         f"narrow and wide, K={LUT_K} and none, {shards} shard(s)")
     return err
+
+
+LONG_READS = (1000, 4000, 16000, 65535)  # bases: the seed scan in place
+
+
+def long_reads(toy):
+    """Toy-genome reads of LONG_READS bases, 0.2% substitutions (N among
+    them): past ~1,000 bases a block's reads no longer fit its shared
+    memory and the seed scan reads them in place; the longest has seeds
+    past read position 32,768."""
+    import numpy as np
+
+    rng = np.random.default_rng(41)
+    codes = np.full((len(LONG_READS), max(LONG_READS)), 4, np.uint8)
+    for i, n in enumerate(LONG_READS):
+        p = int(rng.integers(0, toy.seq_len - n))
+        read = toy.ref_codes[p:p + n].copy()
+        mut = rng.random(n) < 0.002
+        read[mut] = rng.integers(0, 5, int(mut.sum()))
+        codes[i, :n] = read
+    return codes, np.array(LONG_READS, np.int32)
+
+
+def long_plain() -> None:
+    """The plain scan of ``long_reads`` on the CPU (without the K-mer
+    table, which gives the same seeds), into WORK/long/plain.npy: one
+    step a turn over the longest read, tens of seconds, which the card
+    runs no faster; run in a child process while the card works."""
+    import numpy as np
+    import torch
+
+    from dart_tpu_torch.index import load_index
+    from dart_tpu_torch.ops.fm_torch import FMIndexTorch
+
+    torch.set_num_threads(2)
+    toy = load_index(os.path.join(GOLD, "index", "toy"))
+    t, words, S = pack(*long_reads(toy), "cpu")
+    out = FMIndexTorch(toy, "cpu").plain_seed_scan(t, words, S).numpy()
+    d = os.path.join(WORK, "long")
+    os.makedirs(d, exist_ok=True)
+    np.save(os.path.join(d, "plain.tmp.npy"), out)
+    os.replace(os.path.join(d, "plain.tmp.npy"), os.path.join(d, "plain.npy"))
+
+
+def start_long_plain() -> subprocess.Popen:
+    return subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
+         " import chip_smoke; chip_smoke.long_plain()", HERE], cwd=HERE,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+
+
+def check_long_reads(proc: subprocess.Popen, toy, device: str) -> int:
+    """The seed scans (narrow with the K = 11 table and without, wide
+    with it) on ``long_reads``, read in place, against the plain scan of
+    ``long_plain`` (``proc``). Returns the largest difference (0)."""
+    import numpy as np
+    import torch
+
+    from dart_tpu_torch.ops.fm_torch import FMIndexTorch
+
+    _, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"the plain scan of the long reads failed "
+                           f"({proc.returncode}):\n{err[-3000:]}")
+    want = torch.from_numpy(np.load(os.path.join(WORK, "long", "plain.npy")))
+    t, words, S = pack(*long_reads(toy), device)
+    if 128 * (words + words // 2 + 1) * 4 <= 48 * 1024:
+        raise AssertionError("the long reads fit the scan's staging")
+    rpos = want[:, 1:1 + S]
+    if int(rpos.max()) <= 32768:
+        raise AssertionError("no seed past read position 32,768")
+    out = 0
+    for wide in (False, True):
+        eng = FMIndexTorch(toy, device, lut_k=LUT_K, wide=wide)
+        for e in ((eng, without_lut(eng)) if not wide else (eng,)):
+            out = max(out, check_equal(
+                f"seed scan on long reads (wide {wide}, K={e.lut_k})",
+                e.seed_scan(t, words, S).cpu().long(), want.long()))
+    log(f"  seed scans (narrow K={LUT_K} and none, wide K={LUT_K}) == plain "
+        f"on reads of {', '.join(map(str, LONG_READS))} bases, read in place "
+        f"({int(want[:, 0].sum())} seeds, up to read position "
+        f"{int(rpos.max())})")
+    return out
 
 
 COPIES = (2, 3, 5, 10, 20, 50, 100)  # copies of a segment (repeat runs)
@@ -1107,10 +1211,121 @@ def walk_tasks(codes, rlens, rng, L: int):
     return chars, np.arange(L)[None, :] < end[:, None]
 
 
+def toy_walks(toy, L: int = 64):
+    """A task of L bases from every toy genome position, the genome's end
+    as invalid tails: (chars, valid)."""
+    import numpy as np
+
+    G = toy.genome_size
+    padded = np.concatenate([toy.ref_codes[:G], np.full(L, 4, np.uint8)])
+    chars = np.lib.stride_tricks.sliding_window_view(padded, L)[:G].copy()
+    return chars, np.arange(L)[None, :] < (G - np.arange(G))[:, None]
+
+
+def timed_walks(fq: str, seed: int, n: int = N_TIMED):
+    """Phase 8's timed set: n tasks of 128 bases cut from the first n
+    reads of ``fq`` (``walk_tasks``, from ``seed``)."""
+    import numpy as np
+
+    codes, rlens = read_fastq(fq, n)
+    return walk_tasks(codes, rlens, np.random.default_rng(seed), 128)
+
+
+def walk_shapes(toy, indexes: dict, seed: int) -> dict:
+    """The task sets K8's paths send, {name: (index, chars, valid)}: for
+    each of ``indexes`` ({name: (index, reads)}) phase 8's 65,536 tasks
+    of 128 bases (``timed_walks``); the seeding path's tasks, every start
+    of the first N_WALK_READS reads of the first index
+    (``seeding.all_walk_tasks``, 409,600 of 100 bases); ``entry()``'s
+    batch (256 x 96, toy index); a 64-base task from every toy genome
+    position."""
+    import numpy as np
+
+    from dart_tpu_torch.entry import example_batch
+    from dart_tpu_torch.pipeline.seeding import all_walk_tasks
+
+    out = {f"{what} {N_TIMED} x 128": (idx, *timed_walks(fq, seed))
+           for what, (idx, fq) in indexes.items()}
+    what, (idx, fq) = next(iter(indexes.items()))
+    codes, rlens = read_fastq(fq, N_WALK_READS)
+    chars, valid = all_walk_tasks(codes, rlens)
+    out[f"{what} seeding, {N_WALK_READS} reads"] = (idx, chars, valid)
+    out["toy entry()"] = (toy, *example_batch(toy))
+    out["toy every position"] = (toy, *toy_walks(toy))
+    for name, (_, chars, _) in out.items():
+        log(f"  walk tasks {name}: {chars.shape[0]} x {chars.shape[1]}")
+    return out
+
+
+def walk_call(lib, eng, c, v):
+    """One MEM-walk launch of ``lib``'s C entry for ``eng``'s table
+    access, on the tasks (c, v), as ``FMIndexTorch.mem_walk_rows`` makes
+    it (the C interface is the same in every version): (lens, x0, x2)."""
+    import torch
+
+    W, L = c.shape
+    out = [torch.empty(W, dtype=torch.int32, device=eng.device)
+           for _ in range(3)]
+    fn = getattr(lib, f"dart_fm_mem_walks{eng._sfx}")
+    rc = fn(*eng._tab, eng._params_ptr(), c.data_ptr(), v.data_ptr(), W, L,
+            *(o.data_ptr() for o in out), eng._stream())
+    if rc:
+        raise RuntimeError(f"MEM walk launch failed: CUDA error {rc}")
+    return out
+
+
+WALK_INPLACE_LC = 1536  # past the kernel's staging budget (1,520 bases)
+
+
+def in_place(c, v):
+    """The tasks padded with invalid columns to WALK_INPLACE_LC: the
+    same walks, which the kernel reads in place."""
+    import torch
+
+    W, L = c.shape
+    cp = torch.full((W, WALK_INPLACE_LC), 4, dtype=torch.uint8,
+                    device=c.device)
+    vp = torch.zeros((W, WALK_INPLACE_LC), dtype=torch.bool, device=c.device)
+    cp[:, :L] = c
+    vp[:, :L] = v
+    return cp, vp
+
+
+def check_walk_shapes(shapes: dict, device: str) -> int:
+    """This tree's K8 held equal to the plain version at every task set
+    of ``shapes``, on both branches (staged; read in place, the tasks
+    padded past the staging budget), on one table and at index=2 and 3.
+    Returns the largest difference (0)."""
+    import torch
+
+    from dart_tpu_torch.ops.fm_torch import FMIndexTorch
+
+    err = 0
+    for what, (idx, chars, valid) in shapes.items():
+        c = torch.from_numpy(chars).to(device)
+        v = torch.from_numpy(valid).to(device)
+        cp, vp = in_place(c, v)
+        want = FMIndexTorch(idx, device).plain_mem_walks(c, v)
+        for shards in (1, 2, 3):
+            eng = (FMIndexTorch(idx, device) if shards == 1
+                   else sharded(idx, device, shards))
+            for branch, args in (("staged", (c, v)), ("in place", (cp, vp))):
+                for name, g, w in zip(("lens", "x0", "x2"),
+                                      eng.mem_walk_rows(*args), want):
+                    err = max(err, check_equal(
+                        f"mem_walks {name} ({what}, {branch}, "
+                        f"{shards} shard(s))", g, w))
+        del cp, vp
+        log(f"  mem_walks == plain on {what}: staged and in place, flat "
+            "and index=2, 3")
+    return err
+
+
 def phase_mem_walks(toy, big, ds, device: str, n_timed: int,
                     n_reads: int, seed: int) -> dict:
     """The MEM walk (K8): kernel vs plain on the toy and the 8 Mbp index,
-    seeding from walks vs the seed scan, the entry step, and times."""
+    seeding from walks vs the seed scan, the entry step; then times at
+    the task sets of ``walk_shapes`` on the toy and 8 Mbp indexes."""
     import numpy as np
     import torch
 
@@ -1119,7 +1334,6 @@ def phase_mem_walks(toy, big, ds, device: str, n_timed: int,
     from dart_tpu_torch.pipeline.seeding import (_expand_occurrences,
                                                  seed_reads_from_all_walks)
 
-    rng = np.random.default_rng(seed)
     res = {"max_abs_err": 0}
 
     def hold(eng, chars, valid, what):
@@ -1133,17 +1347,14 @@ def phase_mem_walks(toy, big, ds, device: str, n_timed: int,
         return c, v, got[0]
 
     toy_eng = FMIndexTorch(toy, device)
-    G, L = toy.genome_size, 64
-    padded = np.concatenate([toy.ref_codes[:G], np.full(L, 4, np.uint8)])
-    chars = np.lib.stride_tricks.sliding_window_view(padded, L)[:G].copy()
-    valid = np.arange(L)[None, :] < (G - np.arange(G))[:, None]
+    chars, valid = toy_walks(toy)
+    G, L = chars.shape
     lens = hold(toy_eng, chars, valid, "toy index")[2]
     log(f"  mem_walks kernel == plain, a task from each of the {G} toy "
         f"genome positions ({int((lens == L).sum())} walks of all {L} bases)")
 
     eng = FMIndexTorch(big, device)
-    codes, rlens = read_fastq(ds["fq"][0], max(n_timed, n_reads))
-    chars, valid = walk_tasks(codes[:n_timed], rlens[:n_timed], rng, 128)
+    chars, valid = timed_walks(ds["fq"][0], seed, n_timed)
     c, v, lens = hold(eng, chars, valid, "8 Mbp index")
     log(f"  mem_walks kernel == plain on {len(chars)} tasks of 128 bases "
         f"of the 8 Mbp set (mean length {float(lens.float().mean()):.1f}, "
@@ -1152,7 +1363,7 @@ def phase_mem_walks(toy, big, ds, device: str, n_timed: int,
     # the seeding path of engines without the automaton, on a fresh
     # engine: its counts start at 0 here
     walker = FMIndexTorch(big, device)
-    rc, rl = codes[:n_reads], rlens[:n_reads]
+    rc, rl = read_fastq(ds["fq"][0], n_reads)
     walks = seed_reads_from_all_walks(walker, rc, rl, walker.max_dup_num)
     seed_launches = walker.launches["mem_walks"]
     scan = walker.seed_reads(rc, rl)
@@ -1182,6 +1393,8 @@ def phase_mem_walks(toy, big, ds, device: str, n_timed: int,
         f"launches mem_walks {entry_launches['mem_walks']}, locate "
         f"{entry_launches['locate']}")
     res["launches"] = seed_launches + entry_launches["mem_walks"]
+    res["launches_by_path"] = {"seeding": seed_launches,
+                               "entry": entry_launches["mem_walks"]}
     if device == "cuda":
         if not (seed_launches and entry_launches["mem_walks"]
                 and entry_launches["locate"]):
@@ -1191,6 +1404,20 @@ def phase_mem_walks(toy, big, ds, device: str, n_timed: int,
         res.update(walks_bound(eng, c, v))
         log(f"  mem_walks on {len(chars)} x 128 tasks of the 8 Mbp set: "
             f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.3f} ms")
+        cp, vp = in_place(c, v)
+        res["ms_in_place"] = time_ms(lambda: eng.mem_walk_rows(cp, vp), 20)
+        log(f"  mem_walks on the same tasks read in place (padded to "
+            f"{WALK_INPLACE_LC} columns): {res['ms_in_place']:.4f} ms")
+        del cp, vp
+        res["ms_by_shape"] = {}
+        shapes = walk_shapes(toy, {"8 Mbp": (big, ds["fq"][0])}, seed)
+        for what, (idx, chars, valid) in shapes.items():
+            e = FMIndexTorch(idx, device)
+            c, v = (torch.from_numpy(a).to(device) for a in (chars, valid))
+            res["ms_by_shape"][what] = ms = time_ms(
+                lambda: e.mem_walk_rows(c, v), 20)
+            log(f"  mem_walks on {what} ({c.shape[0]} x {c.shape[1]}): "
+                f"kernel {ms:.4f} ms")
     return res
 
 
@@ -1287,12 +1514,8 @@ def phase_mesh_kernels(toy, big, ds, device: str, seed: int) -> dict:
             "across the toy table's genome-row boundaries, K-mer table "
             "built through the sharded access == plain, index=2 and 3")
 
-    G, L = toy.genome_size, 64
-    padded = np.concatenate([toy.ref_codes[:G], np.full(L, 4, np.uint8)])
-    chars = torch.from_numpy(np.lib.stride_tricks.sliding_window_view(
-        padded, L)[:G].copy()).to(device)
-    valid = torch.from_numpy(np.arange(L)[None, :] <
-                             (G - np.arange(G))[:, None]).to(device)
+    chars, valid = (torch.from_numpy(a).to(device) for a in toy_walks(toy))
+    G = chars.shape[0]
     eng = sharded(toy, device, 2)
     want = FMIndexTorch(toy, device).mem_walk_rows(chars, valid)
     for name, g, p, f in zip(("lens", "x0", "x2"),
@@ -1638,7 +1861,8 @@ def load_stats(loads) -> dict:
             "sum": int(loads.sum()), "warps": warps.shape[0]}
 
 
-def phase_diagnosis(big, ds, device: str, shapes: dict) -> dict:
+def phase_diagnosis(big, ds, device: str, shapes: dict,
+                    walks: dict) -> dict:
     """What bounds the seed scan (K1, K4) and the locate (K2, K5): K1's
     time at 16,384, 34,464, 65,536 and 262,144 reads of
     8mbp_se (flat in R: the critical path or the tail sets it; linear:
@@ -1648,9 +1872,12 @@ def phase_diagnosis(big, ds, device: str, shapes: dict) -> dict:
     densely); the latency of one dependent load at 20 MiB (in the L2)
     and 128 MiB (past it); the critical-path floor (the longest read's
     loads times that latency); the locate at the row sets of ``shapes``
-    (``locate_diagnosis``); and ``-Xptxas -v`` of every kernel, which
-    fails the phase, at its end, if a seed scan, a locate or a K-mer
-    table build has a stack frame or spills."""
+    (``locate_diagnosis``); the MEM walk at the task sets of ``walks``
+    (``walks_diagnosis``), where this tree's kernel is also held equal to
+    the plain version on both branches, flat and sharded
+    (``check_walk_shapes``); and ``-Xptxas -v`` of every kernel, which
+    fails the phase, at its end, if a seed scan, a locate, a K-mer table
+    build or a MEM walk has a stack frame or spills."""
     import numpy as np
     import torch
 
@@ -1659,7 +1886,8 @@ def phase_diagnosis(big, ds, device: str, shapes: dict) -> dict:
     res = {"ptxas": ptxas_table(os.path.join(HERE, FM_SOURCE))}
     log_ptxas(res["ptxas"], "this tree")
     local = [r["name"] for r in res["ptxas"]
-             if any(k in r["name"] for k in ("seed_scan", "lut_", "locate"))
+             if any(k in r["name"] for k in ("seed_scan", "lut_", "locate",
+                                             "mem_walks"))
              and (r.get("stack") or r.get("spill_st") or r.get("spill_ld"))]
     res["chase_ns"] = {mb: chase_ns(mb, device) for mb in (20, 128)}
     log(f"  dependent-load latency (pointer chase, one thread): "
@@ -1697,7 +1925,9 @@ def phase_diagnosis(big, ds, device: str, shapes: dict) -> dict:
             f"the longest read [extend, locate, compare, lut, walks] "
             f"{st['longest_by_kind']}")
     res["locate"] = locate_diagnosis(shapes, device, res["chase_ns"])
-    res["shapes"] = shapes
+    res["walks"] = walks_diagnosis(walks, device, res["chase_ns"])
+    res["walks_err"] = check_walk_shapes(walks, device)
+    res["shapes"] = {"locate": shapes, "walks": walks}
     if local:
         raise AssertionError(f"local memory (stack or spills) in {local}")
     return res
@@ -1812,6 +2042,81 @@ def locate_diagnosis(shapes: dict, device: str, chase: dict) -> dict:
     return res
 
 
+def walks_diagnosis(shapes: dict, device: str, chase: dict,
+                    lib=None) -> dict:
+    """What bounds the MEM walk (K8) at each task set of ``shapes``
+    (``walk_shapes``): each task's extension steps (a pair of dependent
+    Occ-row loads each), counted by the plain version: mean, p99, max,
+    and the sum over warps (32 tasks in launch order) of each warp's
+    longest against the sum / 32 (what divergence costs); the
+    critical-path floor, (the longest walk + 1) times one dependent
+    load's latency at the size of the Occ rows (the walks read nothing
+    else) and of the whole table; the bytes bound; the kernel's time
+    (card only, launches queued) against the whole host call
+    ``FMIndexTorch.mem_walks`` makes (upload, launch, download); and,
+    from 65,536 tasks on, the kernel on the first 1/16 and 1/4 of them
+    (flat in W: the longest walks' chains set the time; linear: the
+    steps' throughput). The kernel is ``lib``'s (``walk_call``; the
+    parent's, for a diagnosis before a redesign), by default this
+    tree's."""
+    import numpy as np
+    import torch
+
+    from dart_tpu_torch.ops.fm_torch import FMIndexTorch
+
+    res = {}
+    for what, (idx, chars, valid) in shapes.items():
+        eng = FMIndexTorch(idx, device)
+        mb = -(-eng.table.numel() * 4 // 2**20)
+        occ_mb = -(-eng.ref_off * eng.table.shape[1] * 4 // 2**20)
+        for m in (mb, occ_mb):
+            if m not in chase:
+                chase[m] = chase_ns(m, device)
+
+        def kern(c, v):
+            return (eng.mem_walk_rows(c, v) if lib is None
+                    else walk_call(lib, eng, c, v))
+
+        def host_call():  # FMIndexTorch.mem_walks, through ``kern``
+            c = torch.from_numpy(np.ascontiguousarray(chars)).to(device)
+            v = torch.from_numpy(np.ascontiguousarray(valid)).to(device)
+            return [t.cpu().numpy().astype(np.int64) for t in kern(c, v)]
+
+        c, v = (torch.from_numpy(a).to(device) for a in (chars, valid))
+        steps = torch.zeros(c.shape[0], dtype=torch.int64, device=device)
+        want = eng.plain_mem_walks(c, v, steps=steps)
+        for name, g, w in zip(("lens", "x0", "x2"), kern(c, v), want):
+            check_equal(f"mem_walks {name} ({what})", g, w)
+        st = load_stats(steps)
+        top = st["max"] + 1
+        r = {"tasks": c.shape[0], "L": c.shape[1], **st,
+             "divergence": st["warp_max_sum"] / (st["sum"] / 32),
+             "table_mib": mb, "occ_mib": occ_mb,
+             "floor_ms": top * chase[occ_mb] / 1e6,
+             "floor_table_ms": top * chase[mb] / 1e6,
+             "ms": time_ms(lambda: kern(c, v), 20),
+             "host_ms": host_ms(host_call),
+             **walks_bound(eng, c, v)}
+        if c.shape[0] >= 65536:
+            r["ms_by_W"] = {n: time_ms(lambda: kern(c[:n], v[:n]), 20)
+                            for n in (c.shape[0] // 16, c.shape[0] // 4)}
+            r["ms_by_W"][c.shape[0]] = r["ms"]
+        res[what] = r
+        log(f"  mem_walks, {what}: {r['tasks']} x {r['L']} tasks, steps "
+            f"mean {r['mean']:.2f}, p99 {r['p99']:.0f}, max {r['max']}; "
+            f"sum of warp maxima {r['warp_max_sum']} against sum / 32 "
+            f"{r['sum'] / 32:.0f} (x{r['divergence']:.2f}); floor "
+            f"({r['max']} + 1) x {chase[occ_mb]:.1f} ns (the Occ rows' "
+            f"{occ_mb} MiB) = {1e3 * r['floor_ms']:.2f} us "
+            f"({1e3 * r['floor_table_ms']:.2f} us at the table's {mb} "
+            f"MiB), bytes bound {1e3 * r['bound_ms']:.2f} us; kernel "
+            f"{1e3 * r['ms']:.2f} us, whole host call "
+            f"{1e3 * r['host_ms']:.1f} us"
+            + "".join(f"; {n} tasks {1e3 * ms:.2f} us"
+                      for n, ms in r.get("ms_by_W", {}).items()))
+    return res
+
+
 def fm_call(lib, eng, t, words: int, S: int, lut) -> "torch.Tensor":
     """One seed-scan launch of ``lib``'s C entry for ``eng``'s layout and
     table access, on ``eng``'s tables, as ``FMIndexTorch.seed_scan``
@@ -1918,6 +2223,73 @@ def redesign_lut(old, indexes: dict, device: str) -> dict:
     return times
 
 
+TWO_ROW_LOADS = """  load_row(a, rk, vk);
+  load_row(a, rl, vl);
+"""
+
+
+def one_load_variant():
+    """This tree's kernels built with K8's step loading one Occ row where
+    both ends of the interval fall in it (a compare, then the second
+    load or a copy): the alternative to its two loads, timed beside it in
+    turns (``redesign_walks``)."""
+    import ctypes
+
+    from dart_tpu_torch.ops import build
+
+    src = open(os.path.join(HERE, FM_SOURCE)).read()
+    if src.count(TWO_ROW_LOADS) != 1:
+        raise AssertionError("K8's row loads are not where expected")
+    d = os.path.join(WORK, "one_load")
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "fm_kernels.cu"), "w") as f:
+        f.write(src.replace(TWO_ROW_LOADS, """  load_row(a, rk, vk);
+  if (rl != rk) {
+    load_row(a, rl, vl);
+  } else {
+    vl[0] = vk[0];
+    vl[1] = vk[1];
+  }
+"""))
+    return build.typed(ctypes.CDLL(build.build(d, ("fm_kernels.cu",))[0]))
+
+
+def redesign_walks(old, shapes: dict, device: str) -> dict:
+    """The parent's MEM walk against this tree's, in turns, at every task
+    set of ``shapes`` (``walk_shapes``), on one table and on two shards
+    of it (index=2); both held equal to the plain version. On one table,
+    also ``one_load_variant`` against this tree's."""
+    import torch
+
+    from dart_tpu_torch.ops.fm_torch import FMIndexTorch
+
+    one = one_load_variant()
+    times = {}
+    for what, (idx, chars, valid) in shapes.items():
+        c, v = (torch.from_numpy(a).to(device) for a in (chars, valid))
+        for shards in (1, 2):
+            eng = (FMIndexTorch(idx, device) if shards == 1
+                   else sharded(idx, device, shards))
+            tag = (f"{what} mem_walks"
+                   + ("" if shards == 1 else f", index={shards}")
+                   + f" ({c.shape[0]} x {c.shape[1]})")
+            want = eng.plain_mem_walks(c, v)
+            for g, o, w in zip(eng.mem_walk_rows(c, v),
+                               walk_call(old, eng, c, v), want):
+                check_equal(f"new {tag}", g, w)
+                check_equal(f"old {tag}", o, w)
+            times[tag] = turns(tag, lambda: walk_call(old, eng, c, v),
+                               lambda: eng.mem_walk_rows(c, v))
+            if shards == 1:
+                for g, w in zip(walk_call(one, eng, c, v), want):
+                    check_equal(f"one load {tag}", g, w)
+                times[f"{tag}, one load"] = turns(
+                    f"{tag}: old = one load", lambda: walk_call(
+                        one, eng, c, v), lambda: eng.mem_walk_rows(c, v))
+            del eng
+    return times
+
+
 def phase_redesign(indexes: dict, shapes: dict, device: str) -> dict:
     """The parent's kernels (``chip_smoke_work/parent/fm_kernels.cu``,
     put there for a measurement call) against this tree's, in one call
@@ -1927,7 +2299,8 @@ def phase_redesign(indexes: dict, shapes: dict, device: str) -> dict:
     new, old) with the table warm, and both at 16,384 and 262,144 reads
     of the first index (narrow, K = 11), which shows whether the floor
     under the time moved; then the K-mer table builds
-    (``redesign_lut``). Skipped without the parent's source."""
+    (``redesign_lut``), the locates (``redesign_locate``) and the MEM
+    walks (``redesign_walks``). Skipped without the parent's source."""
     import ctypes
 
     import numpy as np
@@ -1942,7 +2315,7 @@ def phase_redesign(indexes: dict, shapes: dict, device: str) -> dict:
     old = build.typed(ctypes.CDLL(build.build(parent, ("fm_kernels.cu",))[0]))
     res = {"ptxas_old": ptxas_table(os.path.join(parent, "fm_kernels.cu")),
            "times": {}}
-    for only in ("seed_scan", "lut_", "locate"):
+    for only in ("seed_scan", "lut_", "locate", "mem_walks"):
         log_ptxas(res["ptxas_old"], "parent", only)
     for what, (idx, fq) in indexes.items():
         codes, rlens = read_fastq(fq, MAIN_R)
@@ -1978,7 +2351,8 @@ def phase_redesign(indexes: dict, shapes: dict, device: str) -> dict:
             lambda: eng.seed_scan(t, words, S))
     del eng
     res["lut_times"] = redesign_lut(old, indexes, device)
-    res["locate_times"] = redesign_locate(old, shapes, device)
+    res["locate_times"] = redesign_locate(old, shapes["locate"], device)
+    res["walk_times"] = redesign_walks(old, shapes["walks"], device)
     return res
 
 
@@ -2015,12 +2389,7 @@ def phase_cards(toy, big, ds, n_dist: int) -> dict:
         raise AssertionError(f"--cards needs two cards or more, found {count}")
     cards = [f"cuda:{i}" for i in range(count)]
     res = {"cards": count}
-    G, L = toy.genome_size, 64
-    padded = np.concatenate([toy.ref_codes[:G], np.full(L, 4, np.uint8)])
-    chars = torch.from_numpy(np.lib.stride_tricks.sliding_window_view(
-        padded, L)[:G].copy()).cuda()
-    valid = torch.from_numpy(np.arange(L)[None, :] <
-                             (G - np.arange(G))[:, None]).cuda()
+    chars, valid = (torch.from_numpy(a).cuda() for a in toy_walks(toy))
     for wide in (False, True):
         dt = torch.int64 if wide else torch.int32
         rows = torch.arange(toy.seq_len, dtype=dt, device="cuda:0")
@@ -2138,6 +2507,7 @@ def main() -> int:
         return 0
 
     gen50 = start_dataset("50mbp_se")
+    long_proc = start_long_plain()
     try:
         phase("build", do_build)
         phase("dataset", make_dataset)
@@ -2146,7 +2516,8 @@ def main() -> int:
             toy = load_index(os.path.join(GOLD, "index", "toy"))
             big = load_index(ds["prefix"])
             phase("kernels", lambda: phase_kernels(
-                toy, big, ds, "cuda", 4096, 1 << 16, MAIN_R, 20260816))
+                toy, big, ds, "cuda", 4096, 1 << 16, MAIN_R, 20260816,
+                long_proc))
             phase("goldens", lambda: phase_goldens(toy, "cuda"))
             phase("scale", lambda: phase_scale(big, ds, "cuda", N_PARITY))
             phase("nw", lambda: phase_nw(big, ds["prefix"], ds["fq"][0],
@@ -2173,16 +2544,20 @@ def main() -> int:
                     big, ds, "cuda", locate_shapes(
                         {"8 Mbp": big, "50 Mbp": big50},
                         {"8 Mbp": state["scale"],
-                         "50 Mbp": state["scale50"]}, 20261020)))
+                         "50 Mbp": state["scale50"]}, 20261020),
+                    walk_shapes(toy, {"8 Mbp": (big, ds["fq"][0]),
+                                      "50 Mbp": (big50, ds50["fq"][0])},
+                                20261018)))
             if "diagnosis" in state:
                 phase("redesign", lambda: phase_redesign(
                     {"8 Mbp": (big, ds["fq"][0]),
                      "50 Mbp": (big50, ds50["fq"][0])},
                     state["diagnosis"]["shapes"], "cuda"))
     finally:
-        if gen50.poll() is None:
-            gen50.kill()
-            gen50.wait()
+        for proc in (gen50, long_proc):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     if failed or not {"scale", "scale50", "nw", "mem_walks", "mesh",
                       "dryrun", "dist", "profile", "diagnosis"} <= set(state):
         log(f"chip_smoke: failed phases: {', '.join(failed) or 'none'}")
@@ -2208,6 +2583,16 @@ def main() -> int:
         r = state[name]
         rows.append(row(name, source, replaces, r["launches"], r,
                         r["max_abs_err"]))
+    # K8's floor at its timed set (the longest walk's dependent loads)
+    # beside its bytes bound, and its launches on each of its paths
+    walks = state["diagnosis"]["walks"][f"8 Mbp {N_TIMED} x 128"]
+    rows[-1].update(
+        max_abs_err=max(rows[-1]["max_abs_err"],
+                        state["diagnosis"]["walks_err"]),
+        floor_ms=walks["floor_ms"],
+        launches_by_path={**state["mem_walks"]["launches_by_path"],
+                          "dryrun (sharded)": state["dryrun"]["toy"][
+                              "launches"]["mem_walks_sharded"]})
     # the Sharded kernels: launches on the mesh path (data=2,index=2,
     # narrow and wide; the MEM walk in the dry run), times at index=2
     runs, mk = state["mesh"]["runs"], state["mesh"]["kernels"]

@@ -158,7 +158,7 @@ def lut_build_plain(table: torch.Tensor, L2: torch.Tensor, *, primary: int,
 
 def mem_walks_plain(table: torch.Tensor, L2: torch.Tensor,
                     chars: torch.Tensor, valid: torch.Tensor, *,
-                    primary: int):
+                    primary: int, steps: torch.Tensor | None = None):
     """Forward MEM walks (``fm_jax._mem_walks_kernel``, BWT_Search), one
     task per row of ``chars`` (W, L) uint8 codes and ``valid`` (W, L)
     bool: from the interval of the first base, extend by each following
@@ -167,13 +167,19 @@ def mem_walks_plain(table: torch.Tensor, L2: torch.Tensor,
     the bases taken (0 for a task that never starts) and the last
     interval's start and width. A task that never starts keeps the
     interval of its clipped first base ``min(c, 3)``. Column by column
-    over the live tasks only."""
+    over the live tasks only.
+
+    ``steps``, a (W,) int64 tensor on ``chars``' device, receives each
+    task's extension steps: the pairs of dependent Occ-row loads a
+    thread that walks the task makes (its successful extensions, and
+    the one that found width 0)."""
     L2 = L2.long()
     ch = chars.long()
     c0 = ch[:, 0].clamp(max=3)
     x0, x1, x2 = L2[c0] + 1, L2[3 - c0] + 1, L2[c0 + 1] - L2[c0]
     started = valid[:, 0] & (ch[:, 0] <= 3)
     lens = started.long()
+    n_steps = torch.zeros_like(lens)
     live = started.nonzero().squeeze(1)
     for j in range(1, ch.shape[1]):
         c = ch[live, j]
@@ -181,6 +187,7 @@ def mem_walks_plain(table: torch.Tensor, L2: torch.Tensor,
         live, c = live[ok], c[ok]
         if live.numel() == 0:
             break
+        n_steps[live] += 1
         a0, a1, a2 = x0[live], x1[live], x2[live]
         tk = _occ_at(table, a1 - 1, primary)
         tl = _occ_at(table, a1 - 1 + a2, primary)
@@ -193,6 +200,8 @@ def mem_walks_plain(table: torch.Tensor, L2: torch.Tensor,
         x1[live] = nx1.gather(1, ci).squeeze(1)[up]
         x2[live] = wi[up]
         lens[live] += 1
+    if steps is not None:
+        steps.copy_(n_steps)
     return lens.int(), x0.int(), x2.int()
 
 

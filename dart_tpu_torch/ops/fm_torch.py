@@ -314,10 +314,12 @@ class FMIndexTorch:
         return lut_build_plain(self.table, self.L2, primary=self.primary,
                                K=self.lut_k)
 
-    def plain_mem_walks(self, chars: torch.Tensor, valid: torch.Tensor):
-        """The plain PyTorch version of ``mem_walk_rows`` on any device."""
+    def plain_mem_walks(self, chars: torch.Tensor, valid: torch.Tensor,
+                        steps: torch.Tensor | None = None):
+        """The plain PyTorch version of ``mem_walk_rows`` on any device
+        (``steps`` as ``fm_plain.mem_walks_plain`` takes it)."""
         return mem_walks_plain(self.table, self.L2, chars, valid,
-                               primary=self.primary)
+                               primary=self.primary, steps=steps)
 
     # ---- engine surface of the seeding code ----
 

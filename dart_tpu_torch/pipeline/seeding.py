@@ -32,21 +32,28 @@ def build_codes_matrix(reads) -> tuple[np.ndarray, np.ndarray]:
     return codes, rlens
 
 
+def all_walk_tasks(codes: np.ndarray, rlens: np.ndarray):
+    """The MEM-walk tasks of seed_reads_from_all_walks: one from every
+    position of each read (walks beyond rlen-14 are wasted but ignored
+    by the replay), read-major, L bases each, valid up to the read's
+    end -> (chars, valid), (R * L, L)."""
+    R, L = codes.shape
+    # sliding windows, no Python loops
+    padded = np.concatenate([codes, np.full((R, L), 4, dtype=np.uint8)], axis=1)
+    windows = np.lib.stride_tricks.sliding_window_view(padded, L, axis=1)[:, :L, :]
+    chars = np.ascontiguousarray(windows).reshape(R * L, L)
+    ii = np.arange(L, dtype=np.int32)
+    valid = (ii[None, :, None] + ii[None, None, :]) < rlens[:, None, None]
+    return chars, valid.reshape(R * L, L)
+
+
 def seed_reads_from_all_walks(engine, codes: np.ndarray, rlens: np.ndarray,
                               max_dup_num: int):
     """Reference scan replay over precomputed all-position MEM walks.
     Returns the same (n, rpos, slen, k0, freq) tables as the device
     automaton."""
     R, L = codes.shape
-    # tasks: every position (walks beyond rlen-14 are wasted but ignored
-    # by the replay); construct via sliding windows, no Python loops
-    padded = np.concatenate([codes, np.full((R, L), 4, dtype=np.uint8)], axis=1)
-    windows = np.lib.stride_tricks.sliding_window_view(padded, L, axis=1)[:, :L, :]
-    chars = np.ascontiguousarray(windows).reshape(R * L, L)
-    ii = np.arange(L, dtype=np.int32)
-    valid = (ii[None, :, None] + ii[None, None, :]) < rlens[:, None, None]
-    valid = valid.reshape(R * L, L)
-    lens, x0, freq = engine.mem_walks(chars, valid)
+    lens, x0, freq = engine.mem_walks(*all_walk_tasks(codes, rlens))
     lens = lens.reshape(R, L)
     x0 = x0.reshape(R, L)
     freq = freq.reshape(R, L)

@@ -1,7 +1,8 @@
 """The CUDA kernels of dart_tpu_torch on the card, held exactly against
 their plain PyTorch versions on the same device tensors (narrow and
-wide, with and without the K-mer table; the MEM walk; the gap DP; and
-each of them again through the range-sharded table access of
+wide, with and without the K-mer table; the MEM walk, staged and in
+place; the gap DP; and each of them again through the range-sharded
+table access of
 ``--mesh ...,index=N``), and a golden config aligned on the card by the
 port's ``DartAligner``, on one engine and on a device grid. Marked ``cuda``: they skip without a CUDA device. On a
 machine with one: ``pytest -m cuda tests/test_torch_cuda.py``.
@@ -213,6 +214,72 @@ def test_locate_kernel_rows_and_grids(wide, shards, which, kind, gpu_engine,
     assert eng.n_locate_launches == 1 and eng.n_locate_rows == len(rows)
 
 
+WALK_CASES = {"l64": (11, 1500, 64), "l1": (21, 300, 1),
+              "l33": (22, 300, 33), "w257": (23, 257, 64)}
+
+
+def padded_walks(c, v, Lc: int = 1536):
+    """The tasks padded with invalid columns past the kernel's staging
+    budget (1,520 bases): the same walks, read in place."""
+    cp = torch.full((c.shape[0], Lc), 4, dtype=torch.uint8, device=c.device)
+    vp = torch.zeros((c.shape[0], Lc), dtype=torch.bool, device=c.device)
+    cp[:, :c.shape[1]] = c
+    vp[:, :c.shape[1]] = v
+    return cp, vp
+
+
+@pytest.mark.parametrize("shards", [1, 2, 3], ids=["flat", "index2",
+                                                   "index3"])
+@pytest.mark.parametrize("branch", ["staged", "inplace"])
+@pytest.mark.parametrize("case", list(WALK_CASES))
+def test_mem_walks_kernel_branches_and_edges(case, branch, shards,
+                                             gpu_engine, toy_index):
+    """K8 on the tasks of ``test_torch_memwalks.walk_tasks`` (N bases,
+    invalid tails, a first base invalid or N) at L = 64, 1 and 33 (odd)
+    and W = 257 (not a whole block), staged in shared memory or, padded
+    past the staging budget, read in place; Flat and Sharded at index=2
+    and 3: equal to the plain version, one launch."""
+    from test_torch_memwalks import walk_tasks
+
+    seed, W, L = WALK_CASES[case]
+    chars, valid = walk_tasks(toy_index, seed, W=W, L=L)
+    c, v = torch.from_numpy(chars).cuda(), torch.from_numpy(valid).cuda()
+    want = gpu_engine.plain_mem_walks(c, v)
+    if branch == "inplace":
+        c, v = padded_walks(c, v)
+    eng = (FMIndexTorch(toy_index, "cuda") if shards == 1
+           else sharded_engine(toy_index, shards))
+    for g, w in zip(eng.mem_walk_rows(c, v), want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    sfx = "" if shards == 1 else "_sharded"
+    assert eng.launches[f"mem_walks{sfx}"] == 1
+
+
+def test_seed_scan_kernels_read_long_reads_in_place(gpu_engines, toy_index):
+    """K1 with and without the K = 11 table and K4 with it on reads of
+    1,000 to 65,535 bases (0.2% substitutions), past the size at which
+    a block's reads fit its shared memory, so read in place: equal to
+    the plain scan (run on the CPU, which the card runs no faster), with
+    seeds past read position 32,768."""
+    from test_torch_scan_source import long_reads
+
+    codes, rlens = long_reads(toy_index, lens=(1000, 4000, 65535),
+                              rate=0.002)
+    buf, nmask, Lp = pack_codes(codes, rlens)
+    words = Lp // 16
+    t = torch.from_numpy(np.concatenate(
+        [buf[:, :words], nmask, buf[:, words:]], axis=1).view(np.int32))
+    S = FMIndexTorch.seed_slots(Lp, int(rlens.max()))
+    want = FMIndexTorch(toy_index, "cpu").plain_seed_scan(t, words, S)
+    assert int(want[2, 1:1 + S].max()) > 32768
+    t = t.cuda()
+    nolut = copy.copy(gpu_engines["narrow_lut"])
+    nolut.lut, nolut.lut_k = None, 0
+    for eng in (gpu_engines["narrow_lut"], nolut, gpu_engines["wide_lut"]):
+        got = eng.seed_scan(t, words, S).cpu()
+        torch.testing.assert_close(got.long(), want.long(), rtol=0, atol=0)
+
+
 def test_mem_walks_kernel_equals_plain(gpu_engine, toy_index):
     """K8 on a task from every genome position, 64 bases, with 1%
     substitutions and N bases and the genome's end as invalid tails."""
@@ -305,10 +372,11 @@ def test_sharded_seed_scan_and_lut_kernels_equal_plain(wide, gpu_engine,
                             **({} if wide else {"mem_walks_sharded": 0})}
 
 
-def test_sharded_mem_walks_kernel_equals_plain(gpu_engine, toy_index):
-    """K8 through the sharded access at index=2, on a 64-base task from
-    every genome position."""
-    eng = sharded_engine(toy_index, 2)
+@pytest.mark.parametrize("n", [2, 3])
+def test_sharded_mem_walks_kernel_equals_plain(n, gpu_engine, toy_index):
+    """K8 through the sharded access at index=2 and 3, on a 64-base task
+    from every genome position."""
+    eng = sharded_engine(toy_index, n)
     G, L = toy_index.genome_size, 64
     codes = np.concatenate([toy_index.ref_codes[:G], np.full(L, 4, np.uint8)])
     chars = torch.from_numpy(

@@ -15,8 +15,11 @@ reads with mismatches, N bases and short reads, and on repeat reads
 repeat into unique sequence, an N in the middle) at ``max_dup`` 0, 1 and
 100, narrow and wide, with a K-mer table of K = 8 and without; the
 plain scan runs once for each index, width and ``max_dup``, without the
-table, which gives the same seeds. The card (``chip_smoke.py``) holds
-the kernel itself to the plain version.
+table, which gives the same seeds. Reads of 2,000 and 34,000 bases
+(narrow, K = 8) take the branch the card takes for reads past ~1,000
+bases, which reads them in place, with seeds past read position 32,768.
+The card (``chip_smoke.py``, ``tests/test_torch_cuda.py``) holds the
+kernel itself to the plain version.
 """
 
 import ctypes
@@ -60,6 +63,16 @@ struct Dim { unsigned x; };
 static Dim blockIdx, threadIdx, blockDim;
 inline void __syncthreads() {}
 inline void __syncwarp() {}
+inline unsigned atomicOr(unsigned* a, unsigned v) {
+  const unsigned o = *a;
+  *a = o | v;
+  return o;
+}
+inline int atomicMin(int* a, int v) {
+  const int o = *a;
+  if (v < o) *a = v;
+  return o;
+}
 """
 
 SCAN_LOOP = r"""
@@ -104,7 +117,9 @@ def host_source(text: str, loop: str = SCAN_LOOP) -> str:
     dev = text[:cut]
     for cuda, cpu in (("#include <cuda_runtime.h>", SHIM),
                       ("extern __shared__ uint32_t sreads[];",
-                       "uint32_t* sreads = nullptr;")):
+                       "uint32_t* sreads = nullptr;"),
+                      ("extern __shared__ uint32_t swalks[];",
+                       "uint32_t* swalks = nullptr;")):
         assert dev.count(cuda) == 1, cuda
         dev = dev.replace(cuda, cpu)
     return dev + loop
@@ -152,13 +167,14 @@ def plain():
 
 def source_scan(lib, plain, idx, codes, rlens, wide, lut_k, max_dup=100):
     """(the kernel source's output, the plain version's) on these reads;
-    the plain one is computed once for each key of ``plain``."""
+    the plain one is computed once for each index, width, ``max_dup``
+    and read shape (the key of ``plain``)."""
     buf, nmask, Lp = pack_codes(codes, rlens)
     words = Lp // 16
     S = FMIndexTorch.seed_slots(Lp, int(rlens.max()))
     host = np.ascontiguousarray(
         np.concatenate([buf[:, :words], nmask, buf[:, words:]], axis=1))
-    key = (idx.prefix, wide, max_dup)
+    key = (idx.prefix, wide, max_dup, codes.shape)
     if key not in plain:
         plain[key] = FMIndexTorch(
             idx, "cpu", max_dup_num=max_dup, wide=wide).plain_seed_scan(
@@ -214,4 +230,28 @@ def test_kernel_source_equals_plain_on_repeat_reads(scan_lib, plain,
     got, want = source_scan(scan_lib, plain, repeat_index,
                             *repeat_reads(repeat_index), wide, lut_k,
                             max_dup)
+    np.testing.assert_array_equal(got, want)
+
+
+def long_reads(idx, lens=(2000, 34000), seed=41, rate=0.01):
+    """Genome reads of these lengths with ``rate`` substitutions (N
+    among them)."""
+    rng = np.random.default_rng(seed)
+    L = max(lens)
+    codes = np.full((len(lens), L), 4, np.uint8)
+    for i, n in enumerate(lens):
+        p = int(rng.integers(0, idx.seq_len - n))
+        read = idx.ref_codes[p:p + n].copy()
+        mut = rng.random(n) < rate
+        read[mut] = rng.integers(0, 5, int(mut.sum()))
+        codes[i, :n] = read
+    return codes, np.array(lens, np.int32)
+
+
+def test_kernel_source_equals_plain_on_long_reads(scan_lib, plain, toy):
+    codes, rlens = long_reads(toy)
+    got, want = source_scan(scan_lib, plain, toy, codes, rlens, False, 8)
+    S = (want.shape[1] - 1) // 4
+    assert want[1, 1:1 + S].max() > 32768  # seeds past position 32,768
+    assert want[0, 0] > 10 and want[1, 0] > 150
     np.testing.assert_array_equal(got, want)
