@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``dart_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py            # one card: phases 1-14 below
+    python3 chip_smoke.py            # one card: phases 1-16 below
     python3 chip_smoke.py --cards    # two cards or more: phase_cards only
+    python3 chip_smoke.py --big [--gbp 1.1]   # one card: phase_big only
 
 Needs one CUDA card, ``nvcc`` and a C++ compiler; imports no JAX. From
 the root of a checkout it:
@@ -126,7 +127,37 @@ the root of a checkout it:
     its seed scans, K-mer table builds, locates (at every row set of
     phase 13, narrow and wide, on one table and on two shards) and MEM
     walks (at every task set of phase 13, on one table and on two
-    shards) against this tree's, in turns (``phase_redesign``).
+    shards) against this tree's, in turns (``phase_redesign``);
+15. ``[outputs]``, after phase 4: ``bench.py``'s ``8mbp_pe_bam`` set
+    (the 8 Mbp genome, 50,000 pairs simulated in its paired steps,
+    generated in a child process from the start) through ``-bo``: the
+    card's BAM and junction table at ``-t 4`` byte-equal to ``-t 1``,
+    on the first 5,000 pairs byte-equal to the port's CPU path, and a
+    ``--checkpoint`` run crashed in its third chunk, then resumed,
+    byte-equal to an uninterrupted one (``phase_outputs``); the mapping
+    wall of each run, with the card's name and power limit;
+16. ``[cache]``, after phase 6: the engine tables through the layout
+    cache (its threshold patched to 0) on the 8 and 50 Mbp indexes,
+    narrow and wide: a miss that writes the sidecar, then a hit that
+    uploads its read-only memmap; tables and seed scans equal, both
+    set-up times logged (``phase_cache``).
+
+``--big`` (``phase_big``, ``dart_tpu_torch.crossing``) writes the
+synthetic genome of ``tools/run_big_wide_check.py`` (1.1 Gbp, fwd+rc
+text 2.2 G positions, past 2^31) under ``chip_smoke_work/big``, builds
+its index with the port's builder (time and peak RSS logged, free memory
+and disk first), then on the card: the wide engine missing and hitting
+the layout cache; 2,048 locates (K5) either side of 2^31 against the CPU
+engine's plain locate and the index's own samples; 2,048 reads from both
+strands (2% of bases changed) through the seed scan (K4) with the K = 11
+table (K6, held whole against its plain version), against the CPU engine
+on 64 of them and against the genome text at every seed; 10,000 pairs
+through ``dart-tpu-torch -bo -t 4`` against ``--device cpu``; and
+``entry.giant_proof`` at index=2 on the table repacked from ``.wtab``
+(the ``Sharded`` K4/K5); it also times K4-K6 there at phase 2's shapes
+and one dependent load in a buffer of the table's size (``big_times``).
+Its index build peaks at ~37 GiB of host memory; it writes ~13 GB of
+disk. It ends with the ``ok`` line and no ``kernels`` line.
 
 The data sets are generated in ``bench.py``'s steps with the port's own
 index builder; nothing of JAX or of the JAX package ``dart_tpu`` is
@@ -156,6 +187,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import io
 import json
 import os
@@ -219,8 +251,10 @@ def make_dataset(name: str = "8mbp_se"):
     """bench.py's genome, reads and index of config ``name`` under WORK,
     made in the steps of ``bench.ensure_dataset`` (its ``CONFIGS``,
     ``SEED`` and ``READ_LEN``, ``tools/make_fixtures.py``'s generators)
-    with the port's own index builder. Files that exist are kept.
-    Returns {"fq": (reads, None), "prefix", "dir"}."""
+    with the port's own index builder; a paired config's reads as
+    ``bench.py`` simulates them (``sim_reads_paired``). Files that
+    exist are kept. Returns {"fq": (reads, None) or (mates 1, mates 2),
+    "prefix", "dir"}."""
     import random
 
     if HERE not in sys.path:
@@ -237,6 +271,9 @@ def make_dataset(name: str = "8mbp_se"):
     prefix = os.path.join(d, "idx")
     n = spec["n_reads"]
     fq = os.path.join(d, f"reads_{n}.fq")
+    fqs = ((os.path.join(d, f"reads_{n}_1.fq"),
+            os.path.join(d, f"reads_{n}_2.fq")) if spec["paired"]
+           else (fq, None))
     os.makedirs(d, exist_ok=True)
     if not os.path.exists(fa):
         rng = random.Random(bench.SEED)
@@ -250,7 +287,15 @@ def make_dataset(name: str = "8mbp_se"):
                         + "\n")
         mf.write_fasta(fa + ".tmp", sorted(genome.items()))
         os.replace(fa + ".tmp", fa)
-    if not os.path.exists(fq):
+    if spec["paired"] and not os.path.exists(fqs[1]):
+        rng = random.Random(bench.SEED + 1)
+        r1, r2 = mf.sim_reads_paired(rng, read_genome(fa), n // 2,
+                                     bench.READ_LEN, mismatch_rate=0.005)
+        for path, reads in zip(fqs, (r1, r2)):
+            mf.write_reads_fastq(path + ".tmp", reads)
+        for path in fqs:
+            os.replace(path + ".tmp", path)
+    if not spec["paired"] and not os.path.exists(fq):
         rng = random.Random(bench.SEED + 1)
         genome = read_genome(fa)
         with open(os.path.join(d, "genes.txt")) as f:
@@ -267,7 +312,7 @@ def make_dataset(name: str = "8mbp_se"):
         os.replace(fq + ".tmp", fq)
     if not os.path.exists(prefix + ".bwt"):
         build_index(fa, prefix)
-    return {"fq": (fq, None), "prefix": prefix, "dir": d}
+    return {"fq": fqs, "prefix": prefix, "dir": d}
 
 
 def read_genome(fa: str) -> dict:
@@ -985,16 +1030,18 @@ def align(idx, ds, out: str, tag: str, device: str, wide: bool,
             "located": [] if mesh else located}
 
 
-def require_same(out: str, a: str, b: str, what: str) -> None:
-    for ext in ("sam", "tab"):
+def require_same(out: str, a: str, b: str, what: str,
+                 exts=("sam", "tab")) -> None:
+    for ext in exts:
         if not same_bytes(os.path.join(out, f"{a}.{ext}"),
                           os.path.join(out, f"{b}.{ext}")):
             raise AssertionError(f"{what}: {a}.{ext} differs from {b}.{ext}")
 
 
-def head_fastq(fq: str, n: int, out: str) -> str:
-    """The first n records of a FASTQ file, as a file under out."""
-    head = os.path.join(out, f"head{n}.fq")
+def head_fastq(fq: str, n: int, out: str, name: str = "") -> str:
+    """The first n records of a FASTQ file, as a file under out
+    (``name``, default head<n>.fq)."""
+    head = os.path.join(out, name or f"head{n}.fq")
     with open(fq, "rb") as f, open(head, "wb") as g:
         for i, line in enumerate(f):
             if i == 4 * n:
@@ -1043,6 +1090,195 @@ def phase_scale50(big50, ds50, device: str) -> dict:
     require_same(out, "narrow", "wide", "50mbp_se")
     log(f"  all {res['narrow']['reads']} reads: SAM and junction table "
         "byte-equal between the narrow and the wide engine")
+    return res
+
+
+CARD = "the card"  # its name and power limit, as nvidia-smi gives them
+BAM = ("bam", "tab")  # a -bo run's outputs
+
+
+def pe_run(idx, ds, out: str, tag: str, device: str, threads: int,
+           fqs=None, extra=(), engine_hook=None) -> dict:
+    """``dart-tpu-torch -i idx -f r1 -f2 r2 -bo <tag>.bam -t threads``
+    through ``aligner.run`` (the engine, and its launch counts, made
+    inside it), or, with ``engine_hook``, through a ``DartAligner`` the
+    hook may change before its run. Logs and returns the wall (set-up
+    included), the mapping wall of ``--stats`` and the launches."""
+    from dart_tpu_torch.aligner import DartAligner, make_engine, run
+    from dart_tpu_torch.cli import parse_args
+
+    r1, r2 = fqs or ds["fq"]
+    cfg = parse_args(["-i", ds["prefix"], "-f", r1, "-f2", r2, "-bo",
+                      os.path.join(out, f"{tag}.bam"), "-j",
+                      os.path.join(out, f"{tag}.tab"), "-t", str(threads),
+                      "-silent", "--stats", *extra])
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(err):
+        if engine_hook is None:
+            aligner = run(idx, cfg, device)
+        else:
+            aligner = DartAligner(idx, cfg,
+                                  engine=make_engine(idx, cfg, device))
+            engine_hook(aligner)
+            aligner.run()
+    if device == "cuda":
+        import torch
+
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = [ln for ln in err.getvalue().splitlines()
+             if ln.startswith("[stats] wall")]
+    launches = {k: v for k, v in aligner.engine.launches.items()
+                if not k.startswith("mem_walks")}
+    n = aligner.counters["total"]
+    log(f"  {tag}: {n} reads ({n // 2} pairs) in {wall:.3f} s wall incl. "
+        f"set-up, -t {threads}, {device} ({CARD}); "
+        f"{stats[0][8:] if stats else 'no [stats] line'}; launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    return {"wall_s": wall, "stats": stats, "launches": launches,
+            "reads": n}
+
+
+def same_bam(a: str, b: str) -> bool:
+    """The same BAM records: the BGZF members decompressed."""
+    import gzip
+
+    with gzip.open(a, "rb") as fa, gzip.open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def phase_outputs(ds, device: str, n_parity: int, batch: int = 8192) -> dict:
+    """The main path's other outputs on 8mbp_pe_bam (paired reads, BAM):
+    the card's BAM and junction table byte-equal to the port's CPU path
+    on the first n_parity pairs; the whole set at -t 4 byte-equal to -t
+    1; and a --checkpoint run (``batch`` reads a chunk) that crashes in
+    its third chunk, resumed, byte-equal to an uninterrupted one and
+    holding the same records as the -t 1 run. Returns each run's walls
+    and the -t 1 run's launches."""
+    from dart_tpu_torch.index import load_index
+
+    out = os.path.join(WORK, "outputs")
+    os.makedirs(out, exist_ok=True)
+    idx = load_index(ds["prefix"])
+    res = {"t1": pe_run(idx, ds, out, "t1", device, 1),
+           "t4": pe_run(idx, ds, out, "t4", device, 4)}
+    for tag in ("t1", "t4"):
+        if device == "cuda" and not all(res[tag]["launches"].values()):
+            raise AssertionError(f"{tag}: a kernel of the path never "
+                                 f"launched: {res[tag]['launches']}")
+    require_same(out, "t4", "t1", "8mbp_pe_bam -t 4 against -t 1", BAM)
+    log(f"  all {res['t1']['reads'] // 2} pairs: BAM and junction table "
+        "byte-equal at -t 4 and -t 1")
+
+    heads = (head_fastq(ds["fq"][0], n_parity, out, "head_1.fq"),
+             head_fastq(ds["fq"][1], n_parity, out, "head_2.fq"))
+    res["head"] = pe_run(idx, ds, out, "head", device, 1, fqs=heads)
+    res["head_cpu"] = pe_run(idx, ds, out, "head_cpu", "cpu", 1, fqs=heads)
+    require_same(out, "head", "head_cpu",
+                 f"first {n_parity} pairs, {device} against the CPU path", BAM)
+    log(f"  first {n_parity} pairs: BAM and junction table byte-equal to "
+        "the port's CPU path (plain versions)")
+
+    ckpt = ["--checkpoint", "--batch", str(batch)]
+    res["whole"] = pe_run(idx, ds, out, "whole", device, 1, extra=ckpt)
+    calls = {"n": 0}
+
+    def crash_in_third_chunk(aligner):
+        orig = aligner.native.process_chunk
+
+        def flaky(*a, **kw):
+            calls["n"] += 1
+            if calls["n"] == 3:
+                raise RuntimeError("injected crash")
+            return orig(*a, **kw)
+
+        aligner.native.process_chunk = flaky
+
+    try:
+        pe_run(idx, ds, out, "resumed", device, 1, extra=ckpt,
+               engine_hook=crash_in_third_chunk)
+        raise AssertionError("the injected crash did not stop the run")
+    except RuntimeError as e:
+        if str(e) != "injected crash":
+            raise
+    gc.collect()  # the crashed run's writer goes, as with its process
+    bam = os.path.join(out, "resumed.bam")
+    if not os.path.exists(bam + ".ckpt"):
+        raise AssertionError("the crashed run left no checkpoint")
+    cut = os.path.getsize(bam)
+    res["resumed"] = pe_run(idx, ds, out, "resumed", device, 1, extra=ckpt)
+    if os.path.exists(bam + ".ckpt"):
+        raise AssertionError("the resumed run left its checkpoint")
+    require_same(out, "resumed", "whole",
+                 "the crashed and resumed --checkpoint run", BAM)
+    if not same_bam(bam, os.path.join(out, "t1.bam")):
+        raise AssertionError("the --checkpoint run's records differ from "
+                             "the -t 1 run's")
+    log(f"  --checkpoint --batch {batch}: crashed in chunk 3 ({cut} BAM "
+        "bytes on disk), resumed: BAM and junction table byte-equal to an "
+        "uninterrupted --checkpoint run, records equal to the -t 1 run's")
+    return res
+
+
+@contextlib.contextmanager
+def cache_on(prefix: str):
+    """The layout cache on for every text (``CACHE_MIN_SEQ`` 0), with
+    the engine tables' sidecars of ``prefix`` removed on the way in and
+    out."""
+    from dart_tpu_torch.index import layout_cache
+
+    def drop():
+        for kind in ("ntab", "wtab", "wtab2"):
+            with contextlib.suppress(FileNotFoundError):
+                os.remove(f"{prefix}.{kind}")
+
+    old = layout_cache.CACHE_MIN_SEQ
+    drop()
+    layout_cache.CACHE_MIN_SEQ = 0
+    try:
+        yield
+    finally:
+        layout_cache.CACHE_MIN_SEQ = old
+        drop()
+
+
+def phase_cache(indexes: dict, device: str, n_reads: int) -> dict:
+    """The engine tables through the layout cache, with its threshold
+    patched to 0, on each of ``indexes`` ({name: (index, reads)}), narrow
+    and wide: a first engine misses and writes the sidecar, a second
+    hits it; tables and the seed scans of n_reads reads equal. Logs and
+    returns both set-up times."""
+    import torch
+
+    from dart_tpu_torch.ops.fm_torch import FMIndexTorch
+
+    res = {}
+    for name, (idx, fq) in indexes.items():
+        codes, rlens = read_fastq(fq, n_reads)
+        with cache_on(idx.prefix):
+            for wide in (False, True):
+                engs = [FMIndexTorch(idx, device, lut_k=LUT_K, wide=wide)
+                        for _ in range(2)]
+                got = [e.cache for e in engs]
+                if got != ["miss", "hit"]:
+                    raise AssertionError(f"{name} wide={wide}: cache {got}, "
+                                         "expected a miss, then a hit")
+                if not torch.equal(engs[0].table, engs[1].table):
+                    raise AssertionError(f"{name} wide={wide}: the cached "
+                                         "table differs")
+                for a, b in zip(*(e.seed_reads(codes, rlens) for e in engs)):
+                    if not (a == b).all():
+                        raise AssertionError(f"{name} wide={wide}: the seed "
+                                             "scan on the cached table "
+                                             "differs")
+                tag = f"{name} {'wide' if wide else 'narrow'}"
+                res[tag] = {"miss_s": engs[0].setup_s,
+                            "hit_s": engs[1].setup_s}
+                log(f"  {tag}: set-up miss {fmt_setup(engs[0])} (build and "
+                    f"save), hit {fmt_setup(engs[1])} (memmap and upload); "
+                    f"tables and {len(rlens)} reads' seeds equal ({CARD})")
     return res
 
 
@@ -2454,6 +2690,183 @@ def phase_cards(toy, big, ds, n_dist: int) -> dict:
     return res
 
 
+def stamp(msg: str) -> None:
+    log(f"[{time.strftime('%H:%M:%S')}] {msg}")
+
+
+def host_room(path: str) -> str:
+    """The host's available memory and the free disk under path."""
+    import shutil
+
+    with open("/proc/meminfo") as f:
+        mem = {ln.split(":")[0]: int(ln.split()[1]) for ln in f}
+    return (f"{mem['MemAvailable'] / 2**20:.1f} GiB of "
+            f"{mem['MemTotal'] / 2**20:.1f} GiB memory available, "
+            f"{shutil.disk_usage(path).free / 2**30:.1f} GiB disk free")
+
+
+def build_big_index(fa: str, prefix: str) -> dict:
+    """The port's builder (native SA-IS) on fa, in a child process whose
+    stage lines are relayed here; returns its seconds and peak RSS."""
+    import resource
+
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); from "
+            "dart_tpu_torch.index import build_index; "
+            "build_index(sys.argv[2], sys.argv[3])")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", code, HERE, fa, prefix],
+        env=dict(os.environ, DART_TPU_BUILD_LOG="1"), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    for line in proc.stdout:
+        log(f"    {line.rstrip()}")
+    if proc.wait() != 0:
+        raise AssertionError(f"the index build failed ({proc.returncode})")
+    secs = time.perf_counter() - t0
+    rss = resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss / 2**20
+    return {"seconds": secs, "peak_rss_gib": rss}
+
+
+def sim_pairs(fa: str, n: int, d: str):
+    """n pairs simulated from the genome in fa by ``bench.py``'s paired
+    steps (``sim_reads_paired``, 0.5% mismatches, seed SEED + 1)."""
+    import random
+
+    if HERE not in sys.path:
+        sys.path.insert(0, HERE)
+    import bench
+
+    import make_fixtures as mf
+
+    fqs = (os.path.join(d, f"pairs_{n}_1.fq"),
+           os.path.join(d, f"pairs_{n}_2.fq"))
+    rng = random.Random(bench.SEED + 1)
+    r1, r2 = mf.sim_reads_paired(rng, read_genome(fa), n, bench.READ_LEN,
+                                 mismatch_rate=0.005)
+    for path, reads in zip(fqs, (r1, r2)):
+        mf.write_reads_fastq(path, reads)
+    return fqs
+
+
+def big_times(eng, idx) -> dict:
+    """The wide kernels timed on this table at phase 2's shapes (MAIN_R
+    reads from both strands, 2% of bases changed; MAIN_R random rows; one
+    K-mer table), and one dependent load in buffers of 20 MiB, 128 MiB
+    and the table's size."""
+    import numpy as np
+    import torch
+
+    from dart_tpu_torch import crossing
+
+    rng = np.random.default_rng(9)
+    codes = crossing.strand_reads(idx, MAIN_R, 100, rng)
+    t, words, S = pack(codes, np.full(MAIN_R, 100, np.int32), "cuda")
+    rows = torch.from_numpy(rng.integers(1, idx.seq_len, MAIN_R,
+                                         dtype=np.int64)).cuda()
+    table_mb = int(eng.table.nbytes) >> 20
+    return {"seed_scan_wide_ms": time_ms(lambda: eng.seed_scan(t, words, S),
+                                         10),
+            "locate_wide_ms": time_ms(lambda: eng.locate_rows(rows), 10),
+            "lut_build_wide_ms": time_ms(eng.build_lut, 5),
+            "chase_ns": {mb: chase_ns(mb, "cuda")
+                         for mb in (20, 128, table_mb)}}
+
+
+def phase_big(gbp: float, device: str = "cuda") -> dict:
+    """``--big``: the wide engine across 2^31 text positions on a
+    synthetic genome of gbp Gbp (``dart_tpu_torch.crossing``): the
+    index built by the port's builder, the layout cache missed and hit,
+    2,048 locates and 2,048 reads' seed scan on both sides of 2^31
+    against the CPU engine and oracles independent of the layout,
+    10,000 pairs through the whole aligner (BAM, -t 4) against the CPU
+    path, and the index=2 table repacked from the cache."""
+    from dart_tpu_torch import crossing
+    from dart_tpu_torch.index import load_index
+    from dart_tpu_torch.ops.fm_torch import FMIndexTorch
+
+    if 2 * gbp * 1e9 < crossing.TWO31:
+        raise ValueError(f"--gbp {gbp}: the fwd+rc text must pass 2^31")
+    d = os.path.join(WORK, "big")
+    os.makedirs(d, exist_ok=True)
+    fa, prefix = os.path.join(d, "genome.fa"), os.path.join(d, "idx")
+    res = {}
+    stamp(f"{CARD}; {host_room(d)}")
+    if not os.path.exists(prefix + ".bwt"):
+        t0 = time.perf_counter()
+        crossing.write_genome(fa, gbp)
+        stamp(f"wrote a {gbp:.2f} Gbp genome, 4 chromosomes, seed 42, in "
+              f"{time.perf_counter() - t0:.1f} s")
+        res["build"] = b = build_big_index(fa, prefix)
+        stamp(f"index built by the port's builder in {b['seconds']:.0f} s "
+              f"({2 * gbp * 1e9 / b['seconds'] / 1e6:.2f} M text positions "
+              f"a second), peak RSS {b['peak_rss_gib']:.1f} GiB; "
+              f"{host_room(d)}")
+    t0 = time.perf_counter()
+    idx = load_index(prefix)
+    stamp(f"index loaded in {time.perf_counter() - t0:.1f} s: seq_len "
+          f"{idx.seq_len:,} (2^31 = {crossing.TWO31:,}), sampling interval "
+          f"{idx.sad_intv or idx.sa_intv}")
+    eng, c = crossing.check_cache(idx, device, LUT_K)
+    res["cache"] = c
+    stamp(f"cache: the first wide engine missed and wrote .wtab "
+          f"({c['wtab_bytes'] / 2**30:.2f} GiB), set-up table "
+          f"{c['miss_s']['table']:.2f} s + K-mer table "
+          f"{c['miss_s']['lut']:.3f} s; the second hit it, table "
+          f"{c['hit_s']['table']:.2f} s + K-mer table "
+          f"{c['hit_s']['lut']:.3f} s; tables equal ({CARD})")
+    oracle = FMIndexTorch(idx, "cpu", wide=True)
+    stamp(f"CPU engine (plain versions): layout cache {oracle.cache}, "
+          f"set-up {fmt_setup(oracle)}")
+    res["locate"] = r = crossing.check_locate(eng, oracle, idx, 2048, 7)
+    stamp(f"locate PASS: {r['rows']} rows ({r['rows_above']} at or above "
+          f"2^31, {r['on_grid']} on the sampling grid) equal to the CPU "
+          f"engine and to the index's samples; {r['positions_above']} "
+          f"positions at or above 2^31; card {r['device_s']:.3f} s, CPU "
+          f"{r['oracle_s']:.1f} s")
+    res["seed_scan"] = r = crossing.check_seed_scan(eng, oracle, idx, 2048,
+                                                    64, 8)
+    stamp(f"seed scan PASS: K = {LUT_K} K-mer table whole equal to its "
+          f"plain version; {r['reads']} reads, {r['seeds']} seeds "
+          f"({r['located']} located, {r['on_rows']} as rows), {r['subset']} "
+          f"reads equal to the CPU engine, every seed's bases equal to the "
+          f"text at its position; {r['rows_above']} seed rows and "
+          f"{r['positions_above']} seed positions at or above 2^31; card "
+          f"{r['device_s']:.3f} s, CPU {r['oracle_s']:.1f} s")
+    launches = eng.launches
+    stamp(f"launches of the checked engine: {launches}")
+    if device == "cuda" and not all(launches.values()):
+        raise AssertionError(f"a wide kernel never launched: {launches}")
+    if device == "cuda":
+        res["times"] = t = big_times(eng, idx)
+        stamp(f"at this size ({CARD}): seed_scan_wide "
+              f"{t['seed_scan_wide_ms']:.4f} ms ({MAIN_R} reads, Lp = "
+              f"{MAIN_LP}), locate_wide {t['locate_wide_ms']:.4f} ms "
+              f"({MAIN_R} random rows), lut_build_wide "
+              f"{t['lut_build_wide_ms']:.4f} ms (K = {LUT_K}); one "
+              "dependent load: " + ", ".join(
+                  f"{mb} MiB {ns:.1f} ns" for mb, ns in t["chase_ns"].items()))
+    del eng, oracle
+    gc.collect()
+    t0 = time.perf_counter()
+    r1, r2 = sim_pairs(fa, 10_000, d)
+    stamp(f"simulated 10,000 pairs in {time.perf_counter() - t0:.1f} s")
+    res["aligner"] = r = crossing.check_aligner(
+        prefix, r1, r2, os.path.join(d, "aln"), device, threads=4)
+    stamp(f"aligner PASS: 10,000 pairs, -bo, -t 4: BAM ({r['bam_bytes']:,} "
+          f"bytes) and junctions.tab byte-equal on {device} and on the CPU "
+          f"path; mapping walls ([stats] wall) {device} "
+          f"{r['mapping_s']['device']:.2f} s, CPU {r['mapping_s']['cpu']:.2f}"
+          f" s; with index load and set-up {r['wall_s']['device']:.1f} s, "
+          f"{r['wall_s']['cpu']:.1f} s ({CARD})")
+    res["sharded"] = r = crossing.check_sharded(prefix, device)
+    stamp(f"sharded PASS: index=2 on one card, .wtab2 repacked from .wtab "
+          f"(cache {r['cache']}; the single engine's {r['single_cache']}), "
+          f"{r['table_gib']:.2f} GiB in shards of {r['shard_gib']:.2f} GiB; "
+          "seeds and locates equal to the single engine's")
+    stamp("ALL CHECKS PASS")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2463,9 +2876,12 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
-    for line in (smi.stdout.strip().splitlines() if smi.returncode == 0
-                 else [f"nvidia-smi failed: {smi.stderr.strip()}"]):
+    global CARD
+    lines = (smi.stdout.strip().splitlines() if smi.returncode == 0
+             else [f"nvidia-smi failed: {smi.stderr.strip()}"])
+    for line in lines:
         log(line)
+    CARD = "; ".join(lines)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     from dart_tpu_torch.index import load_index
@@ -2490,6 +2906,20 @@ def main() -> int:
         log(f"  {os.path.relpath(lib, HERE)}: built in {secs:.1f} s")
         return secs
 
+    if "--big" in sys.argv[1:]:
+        args = sys.argv[1:]
+        gbp = float(args[args.index("--gbp") + 1]) if "--gbp" in args else 1.1
+        phase("build", do_build)
+        if "build" in state:
+            phase("big", lambda: phase_big(gbp))
+        if failed or "big" not in state:
+            log(f"chip_smoke --big: failed phases: {', '.join(failed)}")
+            return 1
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     if "--cards" in sys.argv[1:]:
         phase("build", do_build)
         phase("dataset", make_dataset)
@@ -2507,6 +2937,7 @@ def main() -> int:
         return 0
 
     gen50 = start_dataset("50mbp_se")
+    genpe = start_dataset("8mbp_pe_bam")
     long_proc = start_long_plain()
     try:
         phase("build", do_build)
@@ -2520,6 +2951,10 @@ def main() -> int:
                 long_proc))
             phase("goldens", lambda: phase_goldens(toy, "cuda"))
             phase("scale", lambda: phase_scale(big, ds, "cuda", N_PARITY))
+            phase("dataset_pe", lambda: finish_dataset(genpe, "8mbp_pe_bam"))
+            if "dataset_pe" in state:
+                phase("outputs", lambda: phase_outputs(state["dataset_pe"],
+                                                       "cuda", N_PARITY))
             phase("nw", lambda: phase_nw(big, ds["prefix"], ds["fq"][0],
                                          "cuda", N_NW_READS, N_TIMED,
                                          20261017))
@@ -2539,6 +2974,9 @@ def main() -> int:
             phase("kernels50", lambda: phase_kernels50(big50, ds50, "cuda",
                                                        20261016))
             phase("scale50", lambda: phase_scale50(big50, ds50, "cuda"))
+            phase("cache", lambda: phase_cache(
+                {"8 Mbp": (big, ds["fq"][0]),
+                 "50 Mbp": (big50, ds50["fq"][0])}, "cuda", 4096))
             if {"scale", "scale50"} <= set(state):
                 phase("diagnosis", lambda: phase_diagnosis(
                     big, ds, "cuda", locate_shapes(
@@ -2554,12 +2992,13 @@ def main() -> int:
                      "50 Mbp": (big50, ds50["fq"][0])},
                     state["diagnosis"]["shapes"], "cuda"))
     finally:
-        for proc in (gen50, long_proc):
+        for proc in (gen50, genpe, long_proc):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    if failed or not {"scale", "scale50", "nw", "mem_walks", "mesh",
-                      "dryrun", "dist", "profile", "diagnosis"} <= set(state):
+    if failed or not {"scale", "scale50", "outputs", "cache", "nw",
+                      "mem_walks", "mesh", "dryrun", "dist", "profile",
+                      "diagnosis"} <= set(state):
         log(f"chip_smoke: failed phases: {', '.join(failed) or 'none'}")
         return 1
     kern, scale = state["kernels"], state["scale"]
@@ -2577,6 +3016,12 @@ def main() -> int:
 
     rows = [row(k, FM_SOURCE, KERNELS[k], launches[k], kern[k],
                 max(kern[k]["max_abs_err"], err50[k])) for k in KERNELS]
+    # the narrow kernels also run on the paired BAM path ([outputs])
+    pe = state["outputs"]["t1"]["launches"]
+    for r in rows:
+        if r["name"] in pe:
+            r["launches_by_path"] = {"8mbp_se": r["launches"],
+                                     "8mbp_pe_bam": pe[r["name"]]}
     for name, source, replaces in (
             ("nw", NW_SOURCE, NW_REPLACES),
             ("mem_walks", FM_SOURCE, MEM_WALKS_REPLACES)):

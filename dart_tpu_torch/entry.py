@@ -355,10 +355,13 @@ def _read_fq_codes(path: str, n: int, L: int = 100):
     return codes, lens
 
 
-def giant_proof(n_devices: int, prefix: str, device="cuda") -> dict:
-    """A >= 1 GB wide table range-sharded over the grid: every shard at
-    most its share of the table, and the seed scan of 48 reads and
-    1,024 locates on it equal to the single-device engine's."""
+def giant_proof(n_devices: int, prefix: str, device="cuda",
+                min_gib: float = 1.0) -> dict:
+    """A wide table of ``min_gib`` GiB or more range-sharded over the
+    grid: every shard at most its share of the table, and the seed scan
+    of 48 reads and 1,024 locates on it (the seeds' rows, then random
+    ones) equal to the single-device engine's. The result says how the
+    layout cache served the sharded table (``cache``)."""
     from .parallel.mesh import ShardedFMIndexTorch, make_mesh
 
     t00 = time.perf_counter()
@@ -369,12 +372,14 @@ def giant_proof(n_devices: int, prefix: str, device="cuda") -> dict:
     shards = sharded.groups[0].table.shards
     tab_gb = sum(t.nbytes for t in shards) / 2**30
     shard_gb = max(t.nbytes for t in shards) / 2**30
-    _require(tab_gb >= 1, "the giant proof needs a table of 1 GiB or more")
+    _require(tab_gb >= min_gib, f"the giant proof needs a table of "
+             f"{min_gib} GiB or more")
     _require(shard_gb <= tab_gb / index_shards + 0.01,
              "a shard holds more than its share")
     print(f"giant wide table sharded: seq_len={idx.seq_len:,} merged table "
           f"{tab_gb:.2f} GiB over index={index_shards} -> largest placed "
-          f"shard {shard_gb:.2f} GiB [{time.perf_counter() - t00:.0f} s]")
+          f"shard {shard_gb:.2f} GiB, layout cache {sharded.cache} "
+          f"[{time.perf_counter() - t00:.0f} s]")
     fq = os.path.join(os.path.dirname(prefix), "reads_100000_1.fq")
     if os.path.exists(fq):
         codes, rlens = _read_fq_codes(fq, 48)
@@ -385,7 +390,11 @@ def giant_proof(n_devices: int, prefix: str, device="cuda") -> dict:
         rlens = np.full(48, 100, np.int32)
     got = sharded.seed_reads(codes, rlens)
     rows = got[3][got[4] >= 1].ravel().astype(np.int64)[:1024]
+    # where the scan located every seed itself, random rows make the rest
+    rows = np.concatenate([rows, np.random.default_rng(32).integers(
+        1, idx.seq_len, 1024 - len(rows), dtype=np.int64)])
     got_locs = sharded.locate(rows)
+    sharded_cache = sharded.cache
     del sharded
     single = FMIndexTorch(idx, device, wide=True)
     _same(got, single.seed_reads(codes, rlens), "giant seed scan")
@@ -394,4 +403,5 @@ def giant_proof(n_devices: int, prefix: str, device="cuda") -> dict:
     print(f"giant shard bit-equality ok: {len(rlens)} reads, {n_seeds} seeds "
           f"+ {len(rows)} located positions identical on the sharded and the "
           "single-device table")
-    return {"table_gib": tab_gb, "shard_gib": shard_gb, "seeds": n_seeds}
+    return {"table_gib": tab_gb, "shard_gib": shard_gb, "seeds": n_seeds,
+            "cache": sharded_cache, "single_cache": single.cache}

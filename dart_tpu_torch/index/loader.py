@@ -7,12 +7,12 @@ NumPy arrays and adds a device-friendly FM-index block layout.
 Unlike the reference (which eagerly heap-loads every structure each
 run), the big derived arrays here are LAZY: file headers are read at
 load time, while the multi-GB payloads (BWT codes, occ checkpoints, SA
-samples, reference codes) materialize on first access. The JAX
-package's production runs (its engine + native pipeline) never touch
-most of them once the engine's merged device table comes from the
-layout cache (index/layout_cache.py; the port's engine does not read it
-yet) — at GRCh38 scale that avoids ~17 GB of anonymous first-touch,
-which the JAX package's TPU host served at ~10-50 MB/s.
+samples, reference codes) materialize on first access. Production runs
+(the engine + native pipeline, in either package) never touch most of
+them once the engine's merged table comes from the layout cache
+(index/layout_cache.py; ops/layout.py here) — at GRCh38 scale that
+avoids ~17 GB of anonymous first-touch, which the JAX package's TPU
+host served at ~10-50 MB/s.
 """
 
 from __future__ import annotations

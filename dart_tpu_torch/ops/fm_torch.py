@@ -61,7 +61,8 @@ class FMIndexTorch:
         """``shard_devices``: two or more devices to range-shard the
         table over (None: the whole table on ``device``). ``tables``:
         the host tables of ``layout.tables_from_index`` to upload, made
-        for this layout and shard count (None: built here)."""
+        for this layout and shard count (None: made here, from the
+        layout cache where it applies; ``cache`` says how)."""
         self.device = torch.device(device)
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
@@ -94,6 +95,7 @@ class FMIndexTorch:
         self.ref_off = tabs["ref_off"]
         self.sad_off = tabs["sad_off"]
         self.seq_len = tabs["seq_len"]
+        self.cache = tabs["cache"]  # how the layout cache served it
         self.max_dup_num = int(max_dup_num)
         dev = to_device(tabs, self.device,
                         shard_devices if n_shards > 1 else None)

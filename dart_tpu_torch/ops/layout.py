@@ -39,6 +39,15 @@ end of its Occ region and at its end
 its ``ref_off`` and ``sad_off``. No kernel reads a padding row.
 ``ShardedTable`` holds such a table as one tensor per row range.
 
+Texts of ``index.layout_cache.CACHE_MIN_SEQ`` positions or more keep
+the merged table in a sidecar next to the index, as ``dart_tpu``'s
+engines do (``fm_jax.FMIndexJax``, ``fm_jax_wide.FMIndexJaxWide``):
+``.ntab`` (narrow, one shard), ``.wtab`` (wide) and ``.wtab<N>`` (wide
+over N shards, repacked from ``.wtab`` when only that one is there),
+keyed on ``{seq_len, sa_intv}``, with the same header and bytes, so
+that each package reads the other's files. A hit memory-maps the file
+and reads nothing of the raw index but its header fields.
+
 Re-implemented here because the JAX modules import ``jax``.
 """
 
@@ -49,8 +58,11 @@ import ctypes
 import numpy as np
 import torch
 
+from ..index import layout_cache
+
 BLOCK = 64  # BWT bases per Occ row
 BLOCK_W = 128  # BWT bases per wide Occ row
+UPLOAD_CHUNK = 64 << 20  # bytes a pinned staging buffer carries to a card
 
 
 def build_device_layout(idx) -> np.ndarray:
@@ -196,38 +208,122 @@ def tables_from_index(idx, wide: bool = False, index_shards: int = 1) -> dict:
     ``table`` ((rows, 8) uint32 narrow, (rows, 16) wide; rows a multiple
     of ``index_shards``), ``L2`` (5,) (int32 narrow, int64 wide),
     ``primary``, ``sa_intv`` (the interval of the samples in the
-    table), ``ref_off``, ``sad_off``, ``seq_len``, ``wide`` and
-    ``index_shards``."""
+    table), ``ref_off``, ``sad_off``, ``seq_len``, ``wide``,
+    ``index_shards`` and ``cache``: how the layout cache served the
+    table ("hit", a read-only memmap; "repack", from ``.wtab``; "miss",
+    built and saved; None where the cache does not apply)."""
     sa_intv = int(idx.sad_intv) if idx.sad_intv else int(idx.sa_intv)
+    seq_len = int(idx.seq_len)
+    meta = {"seq_len": seq_len, "sa_intv": sa_intv}
     if wide:
-        table, ref_off, sad_off = build_merged_table_wide(idx, index_shards)
+        kind = "wtab" if index_shards == 1 else f"wtab{index_shards}"
     else:
-        samples = (idx.sad_samples if idx.sad_intv
-                   else idx.sa_samples).astype(np.int32)
-        table, ref_off, sad_off = build_merged_table(
-            idx, build_device_layout(idx), samples, index_shards)
+        kind = "ntab"
+    use_cache = (bool(getattr(idx, "prefix", None))
+                 and (wide or index_shards == 1)
+                 and layout_cache.eligible(seq_len))
+    table = how = None
+    if use_cache:
+        table, h = layout_cache.load_array(idx.prefix, kind, meta)
+        if table is not None:
+            ref_off, sad_off, how = int(h["ref_off"]), int(h["sad_off"]), "hit"
+        elif wide and index_shards > 1:
+            rep = _repack_from_cache(idx.prefix, index_shards, meta)
+            if rep is not None:
+                (table, ref_off, sad_off), how = rep, "repack"
+    if table is None:
+        if wide:
+            table, ref_off, sad_off = build_merged_table_wide(idx,
+                                                              index_shards)
+        else:
+            samples = (idx.sad_samples if idx.sad_intv
+                       else idx.sa_samples).astype(np.int32)
+            table, ref_off, sad_off = build_merged_table(
+                idx, build_device_layout(idx), samples, index_shards)
+        if use_cache:
+            layout_cache.save_array(idx.prefix, kind, table, dict(
+                meta, ref_off=int(ref_off), sad_off=int(sad_off)))
+            how = "miss"
     L2 = np.asarray(idx.L2).astype(np.int64 if wide else np.int32)
     return {"table": table, "L2": L2, "primary": int(idx.primary),
             "sa_intv": sa_intv, "ref_off": int(ref_off),
-            "sad_off": int(sad_off), "seq_len": int(idx.seq_len),
-            "wide": bool(wide), "index_shards": int(index_shards)}
+            "sad_off": int(sad_off), "seq_len": seq_len,
+            "wide": bool(wide), "index_shards": int(index_shards),
+            "cache": how}
+
+
+def _repack_from_cache(prefix: str, n_shards: int, meta: dict):
+    """The wide table over n_shards made from the cached ``.wtab``
+    (``fm_jax_wide.FMIndexJaxWide._repack_sharded_from_cache``): zero
+    rows at the end of the Occ region and at the end, which move
+    ``ref_off`` and ``sad_off``; saved as ``.wtab<n_shards>``. Returns
+    (table, ref_off, sad_off), or None when ``.wtab`` misses too."""
+    base, h = layout_cache.load_array(prefix, "wtab", meta)
+    if base is None:
+        return None
+    ref_off, sad_off = int(h["ref_off"]), int(h["sad_off"])
+    pad1 = (-ref_off) % n_shards
+    n_rows = base.shape[0] + pad1
+    out = np.zeros((n_rows + (-n_rows) % n_shards, base.shape[1]),
+                   base.dtype)
+    out[:ref_off] = base[:ref_off]
+    out[ref_off + pad1:n_rows] = base[ref_off:]
+    ref_off, sad_off = ref_off + pad1, sad_off + pad1
+    layout_cache.save_array(prefix, f"wtab{n_shards}", out,
+                            dict(meta, ref_off=ref_off, sad_off=sad_off))
+    return out, ref_off, sad_off
 
 
 def to_device(tables: dict, device, shard_devices=None) -> dict:
     """The same dict with ``table`` as an int32 tensor on ``device``
     (its uint32 words keep their bits), or, given ``shard_devices``
     (one per index shard), as a ``ShardedTable`` of one allocation on
-    each; and ``L2`` as a tensor of its own type on ``device``."""
+    each; and ``L2`` as a tensor of its own type on ``device``. A
+    read-only table (the layout cache's memmap) is copied, never
+    aliased: on the CPU whole, to a card through ``upload``."""
     out = dict(tables)
     words = np.ascontiguousarray(tables["table"]).view(np.int32)
     if shard_devices is None:
-        out["table"] = torch.from_numpy(words).to(device)
+        out["table"] = upload(words, device)
     else:
         rows = words.shape[0] // len(shard_devices)
         out["table"] = ShardedTable([
-            torch.from_numpy(words[s * rows:(s + 1) * rows]).to(d, copy=True)
+            upload(words[s * rows:(s + 1) * rows], d, copy=True)
             for s, d in enumerate(shard_devices)])
     out["L2"] = torch.from_numpy(tables["L2"]).to(device)
+    return out
+
+
+def upload(words: np.ndarray, device, copy: bool = False) -> torch.Tensor:
+    """A contiguous int32 array as a tensor on ``device``. On the CPU it
+    aliases a writable array unless ``copy``, and copies a read-only
+    one. To a card a writable array goes in one copy; a read-only one
+    (a memmap of the layout cache) goes UPLOAD_CHUNK bytes at a time
+    through two pinned staging buffers, read from the page cache, so
+    that no anonymous copy of the whole table is made on the host."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        if copy or not words.flags.writeable:
+            words = np.array(words)
+        return torch.from_numpy(words)
+    if words.flags.writeable:
+        return torch.from_numpy(words).to(device, copy=True)
+    out = torch.empty(words.shape, dtype=torch.int32, device=device)
+    src, dst = words.reshape(-1), out.view(-1)
+    step = UPLOAD_CHUNK // 4
+    bufs = [torch.empty(min(step, src.size), dtype=torch.int32,
+                        pin_memory=True) for _ in range(2)]
+    done = [None, None]
+    with torch.cuda.device(device):
+        for i, a in enumerate(range(0, src.size, step)):
+            b, j = min(a + step, src.size), i % 2
+            if done[j] is not None:
+                done[j].synchronize()  # its last copy has left the buffer
+            bufs[j].numpy()[:b - a] = src[a:b]
+            dst[a:b].copy_(bufs[j][:b - a], non_blocking=True)
+            done[j] = torch.cuda.Event()
+            done[j].record()
+        torch.cuda.current_stream(device).synchronize()
     return out
 
 

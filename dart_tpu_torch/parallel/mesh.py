@@ -94,6 +94,7 @@ class ShardedFMIndexTorch:
         t0 = time.perf_counter()
         tabs = tables_from_index(idx, wide=wide, index_shards=n_index)
         host_s = time.perf_counter() - t0
+        self.cache = tabs["cache"]  # how the layout cache served it
         self.groups = [FMIndexTorch(idx, g[0], max_dup_num=max_dup_num,
                                     lut_k=lut_k, wide=wide,
                                     shard_devices=g if n_index > 1 else None,

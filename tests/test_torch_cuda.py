@@ -429,3 +429,60 @@ def test_golden_on_card_mesh(gpu_engine, toy_index, data_dir, golden_dir,
         (golden_dir / "c4_spliced_mm.junctions.tab").read_text()
     assert all(s["seed_scan_sharded"] >= 1 and s["lut_build_sharded"] == 2
                for s in engine.slot_launches)
+
+
+# ---- the layout cache's read-only memmap, uploaded ----
+
+
+@pytest.mark.filterwarnings("error::UserWarning")
+@pytest.mark.parametrize("shards", [1, 2])
+def test_upload_from_a_read_only_memmap(shards, gpu_engine, toy_index,
+                                        tmp_path, monkeypatch):
+    """A wide table memory-mapped read-only from a sidecar goes to the
+    card (Flat, and two Sharded shards) through the pinned staging
+    buffers, many chunks of them, with no warning, equal to the table
+    it was saved from."""
+    import numpy as np
+
+    from dart_tpu_torch.index import layout_cache
+    from dart_tpu_torch.ops import layout
+
+    monkeypatch.setattr(layout, "UPLOAD_CHUNK", 4096)
+    tabs = layout.tables_from_index(toy_index, wide=True,
+                                    index_shards=shards)
+    prefix = str(tmp_path / "toy")
+    layout_cache.save_array(prefix, "wtab", tabs["table"], {"k": 1})
+    mm, _ = layout_cache.load_array(prefix, "wtab", {"k": 1})
+    assert isinstance(mm, np.memmap) and not mm.flags.writeable
+    dev = layout.to_device(dict(tabs, table=mm), "cuda",
+                           ["cuda"] * shards if shards > 1 else None)
+    got = dev["table"]
+    if shards > 1:
+        assert len(got.shards) == 2
+        got = torch.cat(got.shards)
+    want = torch.from_numpy(tabs["table"].view(np.int32))
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_engine_on_a_cache_hit_equals_a_build(wide, gpu_engine, golden_dir,
+                                              tmp_path, monkeypatch):
+    """On a copy of the toy index with the cache on for every text, the
+    second card engine hits the sidecar the first wrote; the locate of
+    every row and the K-mer table agree."""
+    import shutil
+
+    from dart_tpu_torch.index import layout_cache, load_index
+
+    monkeypatch.setattr(layout_cache, "CACHE_MIN_SEQ", 0)
+    for f in (golden_dir / "index").iterdir():
+        if f.name.startswith("toy."):
+            shutil.copy(f, tmp_path / f.name)
+    idx = load_index(str(tmp_path / "toy"))
+    first = FMIndexTorch(idx, "cuda", lut_k=11, wide=wide)
+    eng = FMIndexTorch(idx, "cuda", lut_k=11, wide=wide)
+    assert (first.cache, eng.cache) == ("miss", "hit")
+    assert torch.equal(first.table, eng.table)
+    assert torch.equal(first.lut, eng.lut)
+    rows = torch.arange(idx.seq_len, dtype=eng.idx_dtype, device="cuda")
+    assert torch.equal(eng.locate_rows(rows), first.locate_rows(rows))
