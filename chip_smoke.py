@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``dart_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py            # one card: phases 1-16 below
+    python3 chip_smoke.py            # one card: phases 1-17 below
     python3 chip_smoke.py --cards    # two cards or more: phase_cards only
     python3 chip_smoke.py --big [--gbp 1.1]   # one card: phase_big only
+    python3 chip_smoke.py --stream [--files 100]   # one card: a long stream
 
 Needs one CUDA card, ``nvcc`` and a C++ compiler; imports no JAX. From
 the root of a checkout it:
@@ -140,7 +141,41 @@ the root of a checkout it:
     cache (its threshold patched to 0) on the 8 and 50 Mbp indexes,
     narrow and wide: a miss that writes the sidecar, then a hit that
     uploads its read-only memmap; tables and seed scans equal, both
-    set-up times logged (``phase_cache``).
+    set-up times logged (``phase_cache``);
+17. ``[stream]``, after phases 4 and 15, the long-stream paths
+    (``phase_stream``, ``dart_tpu_torch.stream``): (a) ``8mbp_se``'s
+    file as 10 ``-f`` files (1,000,000 reads, 20 chunks) with phase 4's
+    flags and ``--checkpoint`` on the narrow engine (K = 11 table),
+    whose SAM and junction table pass ``stream.check_stream`` against
+    phase 4's one-file run, every kernel of the path launched once a
+    chunk, the card's reserved bytes after the last chunk no more than
+    after the third and this process's own bytes on the card (NVML's
+    count, read once a chunk) within 64 MiB of the third chunk's
+    (``stream.hold_card``), the card's used bytes (``mem_get_info``,
+    every process's), host RSS and card bytes logged a file; (b)
+    the same stream crashed in the second chunk of file 4 and resumed,
+    at ``--ckpt-interval 0`` and at ``--ckpt-interval 2 --batch 16384``
+    (the crash placed two chunks or more after the last save, so the
+    resume re-does them), byte-equal to (a); (c) the wide engine over 3
+    files, held as (a); (d) ``-all_sj -m``: ``8mbp_se`` and
+    ``8mbp_dup`` (8mbp_se's genome with chr1's first 20 genes copied
+    into a third chromosome, so that reads from them map twice and the
+    flags change the outputs; on 8mbp_se every mapped read maps once)
+    byte-equal between the engines and, on the first 5,000 reads, to
+    the CPU path; ``8mbp_pe_bam`` through ``-bo``, its first 5,000 pairs
+    byte-equal to the CPU path; two processes on the card against one
+    over all 50,000 pairs (BAM) on its index and on 8mbp_dup's, and over
+    8mbp_se's reads on 8mbp_dup's (SAM), merged outputs and junction
+    tables byte-equal.
+
+``--stream [--files N]`` (``phase_stream_long``) streams ``8mbp_se``'s
+file N times (default 100: 10 M reads, 200 chunks) through
+``dart_tpu_torch.stream`` with ``-bo`` and ``--checkpoint``, holds the
+BAM and junction table to the stream's one-file warm pass with
+``check_stream`` and the card's memory as ``[stream]`` (a) does, and
+logs every chunk, each file's host RSS and card bytes, and the summary
+line with the card's name and power limit. It ends with the ``ok``
+line and no ``kernels`` line.
 
 ``--big`` (``phase_big``, ``dart_tpu_torch.crossing``) writes the
 synthetic genome of ``tools/run_big_wide_check.py`` (1.1 Gbp, fwd+rc
@@ -164,14 +199,19 @@ index builder; nothing of JAX or of the JAX package ``dart_tpu`` is
 imported, and an attempt to is refused.
 
 Every engine of a main-path run (phases 4, 6 and the grid runs of 9) is
-made inside that run, so its launch counts start at 0 there; the checks
+made inside that run, so its launch counts start at 0 there; the
+streams (a) and (c) of 17 count their launches from just after their
+warm pass to the stream's end (``stream.run_stream``'s "launches"); the
+checks
 and timings of phases 2, 5 and 9 use engines of their own. Phases 7 and
 8 set the counts of their paths to 0 just before driving them and read
 them just after, and the dry run makes its engines inside it. The line
 before the last is a JSON object with each kernel's launches on its
 path (phase 4 for K1-K6, phases 7 and 8 for the gap DP and the MEM
 walk, phase 9's ``data=2,index=2`` runs for the ``*_sharded`` kernels
-but the MEM walk's, which is the dry run's), its largest difference
+but the MEM walk's, which is the dry run's; ``launches_by_path`` adds the
+paired BAM path of phase 15 and the stream of phase 17), its largest
+difference
 from the plain version, and both times (at the 8 Mbp index for the FM
 kernels, at index=2 for the sharded ones), its bound (the bytes it
 must move at the card's memory rate: inputs once, outputs once, and the
@@ -974,12 +1014,13 @@ def recording_locates():
 
 
 def align(idx, ds, out: str, tag: str, device: str, wide: bool,
-          mesh: str = "") -> dict:
-    """One main-path run over the whole read set, on one engine or, with
-    ``mesh``, on a device grid: the engine (and its launch counts, which
-    start at 0) is made inside it. Logs and returns wall time, reads/s,
-    set-up seconds, launch counts (and each data group's, on a grid)
-    and, on one engine, the rows of each locate launch."""
+          mesh: str = "", extra=()) -> dict:
+    """One main-path run over the whole read set (``extra`` flags added),
+    on one engine or, with ``mesh``, on a device grid: the engine (and
+    its launch counts, which start at 0) is made inside it. Logs and
+    returns wall time, reads/s, set-up seconds, launch counts (and each
+    data group's, on a grid) and, on one engine, the rows of each locate
+    launch."""
     from dart_tpu_torch.aligner import default_lut_k, run
     from dart_tpu_torch.cli import parse_args
 
@@ -987,7 +1028,7 @@ def align(idx, ds, out: str, tag: str, device: str, wide: bool,
     cfg = parse_args(["-i", ds["prefix"], "-f", ds["fq"][0], "-o",
                       os.path.join(out, f"{tag}.sam"), "-j",
                       os.path.join(out, f"{tag}.tab"), "-silent", "--stats",
-                      *(["--mesh", mesh] if mesh else [])])
+                      *(["--mesh", mesh] if mesh else []), *extra])
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()), \
             contextlib.redirect_stderr(err), recording_locates() as located:
@@ -1183,22 +1224,10 @@ def phase_outputs(ds, device: str, n_parity: int, batch: int = 8192) -> dict:
 
     ckpt = ["--checkpoint", "--batch", str(batch)]
     res["whole"] = pe_run(idx, ds, out, "whole", device, 1, extra=ckpt)
-    calls = {"n": 0}
-
-    def crash_in_third_chunk(aligner):
-        orig = aligner.native.process_chunk
-
-        def flaky(*a, **kw):
-            calls["n"] += 1
-            if calls["n"] == 3:
-                raise RuntimeError("injected crash")
-            return orig(*a, **kw)
-
-        aligner.native.process_chunk = flaky
-
+    crash, _ = crash_hook(sys.maxsize, 0, 3)  # one file: its third chunk
     try:
         pe_run(idx, ds, out, "resumed", device, 1, extra=ckpt,
-               engine_hook=crash_in_third_chunk)
+               engine_hook=crash)
         raise AssertionError("the injected crash did not stop the run")
     except RuntimeError as e:
         if str(e) != "injected crash":
@@ -1220,6 +1249,388 @@ def phase_outputs(ds, device: str, n_parity: int, batch: int = 8192) -> dict:
         "bytes on disk), resumed: BAM and junction table byte-equal to an "
         "uninterrupted --checkpoint run, records equal to the -t 1 run's")
     return res
+
+
+N_STREAM_FILES = 10  # 8mbp_se's 100,000 reads as 10 -f files: 1 M reads
+N_WIDE_FILES = 3  # the same through the wide engine
+STREAM_SLACK = 64 << 20  # bytes the card's used memory may move
+MiB = 1 << 20
+
+
+def stream_args(ds, out: str, tag: str, fmt: str = "sam", extra=()):
+    """Phase 4's flags with ``--checkpoint``, into out/<tag>.<fmt>:
+    (argv, (alignments, junctions.tab))."""
+    outs = (os.path.join(out, f"{tag}.{fmt}"), os.path.join(out, f"{tag}.tab"))
+    return (["-i", ds["prefix"], "-f", ds["fq"][0],
+             "-bo" if fmt == "bam" else "-o", outs[0], "-j", outs[1],
+             "-silent", "--stats", "--checkpoint", *extra], outs)
+
+
+def run_stream(idx, args, n_files: int, device: str, engine=None,
+               hook=None, quiet: bool = False) -> dict:
+    """``dart_tpu_torch.stream.run_stream`` of ``args`` over n_files files
+    on ``engine`` (made inside it when None), its chunk lines logged
+    unless ``quiet``; the summary line logged and returned, with the
+    per-chunk records under "log"."""
+    from dart_tpu_torch import stream
+    from dart_tpu_torch.cli import parse_args
+
+    sink = io.StringIO() if quiet else sys.stdout
+    res = stream.run_stream(idx, parse_args(args), n_files, device,
+                            engine=engine, log=sink, on_aligner=hook)
+    log("  " + json.dumps({k: v for k, v in res.items()
+                           if k not in ("log", "engine")}))
+    return res
+
+
+def hold_stream(res, what: str, kernels) -> None:
+    """A stream's host RSS and card bytes at the end of each file, logged;
+    every kernel of ``kernels`` launched once a chunk at least in the
+    stream itself; its memory on the card flat from the third chunk
+    (``stream.hold_card``: the reserve, and this process's own bytes
+    within STREAM_SLACK)."""
+    from dart_tpu_torch import stream
+
+    last = {}
+    for r in res["log"]:
+        last[r["file"]] = r
+    for f, r in sorted(last.items()):
+        c = r["card"]
+        log(f"    file {f}: rss {r['rss_mb']:.1f} MB, card reserved "
+            f"{c['reserved'] / MiB:.1f} MiB, used {c['used'] / MiB:.1f} "
+            f"MiB, own {stream._mib(c['own'])} MiB, allocated "
+            f"{c['allocated'] / MiB:.1f} MiB")
+    for k in kernels:
+        if res["launches"].get(k, 0) < res["chunks"]:
+            raise AssertionError(f"{what}: {k} launched "
+                                 f"{res['launches'].get(k, 0)} times in "
+                                 f"{res['chunks']} chunks")
+    try:
+        held = stream.hold_card(res["log"], STREAM_SLACK)
+    except AssertionError as e:
+        raise AssertionError(f"{what}: {e}") from None
+    log(f"  {what}: {res['chunks']} chunks, launches {res['launches']}; "
+        f"card reserved {res['reserved_third'] / MiB:.1f} MiB after chunk 3, "
+        f"{res['reserved_last'] / MiB:.1f} MiB after the last (peak "
+        f"{res['reserved_peak'] / MiB:.1f}); this process's own bytes "
+        f"{stream._mib(res['own_third'])} MiB after chunk 3, moved at most "
+        f"{held['own_moved'] / MiB:.1f} MiB from there; the card's used "
+        f"bytes moved at most {held['used_moved'] / MiB:.1f} MiB, past "
+        f"{STREAM_SLACK // MiB} MiB at {held['used_moves_past_slack']} "
+        f"chunks; host RSS {res['rss_mb_per_file']:+.2f} MB a file ({CARD})")
+
+
+def crash_hook(per_file: int, file_idx: int, chunk: int, lag: int = 0):
+    """A hook that makes the streaming aligner's native pipeline raise in
+    chunk ``chunk`` (from 1) of file ``file_idx`` (from 0), as a process
+    that dies there, or, with ``lag``, in the first chunk from there on
+    that follows ``lag`` or more chunks finished since the last
+    checkpoint save, so that the resume re-does them. Records the
+    crashed chunk and the chunks done at the last save (from 1)."""
+    seen = {"calls": 0, "saved": 0, "since": 0, "files": {}}
+
+    def hook(aligner):
+        proc, save = aligner.native.process_chunk, aligner._ckpt_save
+
+        def saving(*a, **kw):
+            seen["saved"], seen["since"] = seen["calls"], 0
+            return save(*a, **kw)
+
+        def flaky(*a, **kw):
+            f = aligner.counters["total"] // per_file
+            seen["files"][f] = seen["files"].get(f, 0) + 1
+            seen["calls"] += 1
+            if ((f, seen["files"][f]) >= (file_idx, chunk)
+                    and seen["since"] >= lag):
+                seen["crashed"], seen["file"] = seen["calls"], f
+                raise RuntimeError("injected crash")
+            out = proc(*a, **kw)
+            seen["since"] += 1
+            return out
+
+        aligner._ckpt_save = saving
+        aligner.native.process_chunk = flaky
+
+    return hook, seen
+
+
+def crash_and_resume(idx, args, outs, n_files: int, device: str, engine,
+                     per_file: int, lag: int) -> dict:
+    """The stream of ``args`` crashed in the second chunk of file 4 (with
+    ``lag``: as ``crash_hook`` moves it), then run again: it resumes
+    from its checkpoint. Returns the crash point and the resumed run."""
+    hook, seen = crash_hook(per_file, 3, 2, lag)
+    try:
+        run_stream(idx, args, n_files, device, engine, hook, quiet=True)
+        raise AssertionError("the injected crash did not stop the stream")
+    except RuntimeError as e:
+        if str(e) != "injected crash":
+            raise
+    gc.collect()  # the crashed run's writer goes, as with its process
+    out = outs[0]
+    with open(out + ".ckpt") as f:
+        ckpt = json.load(f)
+    redone = seen["crashed"] - 1 - seen["saved"]
+    if redone < lag:
+        raise AssertionError(f"the last save lags the crash by {redone} "
+                             f"chunks, not {lag} or more")
+    res = run_stream(idx, args, n_files, device, engine, quiet=True)
+    if os.path.exists(out + ".ckpt"):
+        raise AssertionError("the resumed stream left its checkpoint")
+    log(f"  crashed in chunk {seen['crashed']} (file {seen['file']}, "
+        f"chunk {seen['files'][seen['file']]}), checkpoint at file "
+        f"{ckpt['file_idx']} chunk {ckpt['chunks']} ({os.path.getsize(out)} "
+        f"bytes on disk, the last save {redone} chunks before the crash); "
+        f"resumed: {res['chunks']} chunks in {res['wall_s']:.3f} s")
+    return {"crashed": seen["crashed"], "redone": redone, "ckpt": ckpt,
+            "resumed_chunks": res["chunks"], "wall_s": res["wall_s"]}
+
+
+DUP_GENES = 20  # chr1's first genes, copied whole into chrDup
+
+
+def make_dup(ds) -> dict:
+    """``8mbp_dup``: 8mbp_se's genome with a copy of chr1 from its start
+    to past its DUP_GENES-th gene as a third chromosome, chrDup, indexed
+    under WORK by the port's index builder. 8mbp_se's reads (and
+    8mbp_pe_bam's) from that span map twice there, so -m reports more
+    than one alignment and -all_sj records junctions that phase 4's
+    run, which keeps only unique alignments' junctions, leaves out.
+    Returns a data set dict with 8mbp_se's reads."""
+    import make_fixtures as mf  # on sys.path through bench (make_dataset)
+
+    from dart_tpu_torch.index import build_index
+
+    d = os.path.join(WORK, "8mbp_dup")
+    prefix = os.path.join(d, "idx")
+    if not os.path.exists(prefix + ".bwt"):
+        os.makedirs(d, exist_ok=True)
+        genome = read_genome(os.path.join(ds["dir"], "genome.fa"))
+        with open(os.path.join(ds["dir"], "genes.txt")) as f:
+            ends = [int(line.rsplit("-", 1)[1]) for line in f]
+        genome["chrDup"] = genome["chr1"][:ends[DUP_GENES - 1] + 1000]
+        fa = os.path.join(d, "genome.fa")
+        mf.write_fasta(fa, sorted(genome.items()))
+        build_index(fa, prefix)
+    return {"fq": ds["fq"], "prefix": prefix, "dir": d}
+
+
+def allsj_se(idx, ds, d: str, name: str, device: str, n_parity: int) -> dict:
+    """``-all_sj -m`` on a single-end set: the whole set on the narrow and
+    the wide engine byte-equal, and its first n_parity reads byte-equal
+    to the port's CPU path. Outputs d/<name>_{narrow,wide,port,cpu}."""
+    from dart_tpu_torch.aligner import run
+    from dart_tpu_torch.cli import parse_args
+
+    allsj = ["-all_sj", "-m"]
+    res = {w: align(idx, ds, d, f"{name}_{w}", device, w == "wide",
+                    extra=allsj) for w in ("narrow", "wide")}
+    require_same(d, f"{name}_narrow", f"{name}_wide", f"{name} -all_sj -m")
+    head = head_fastq(ds["fq"][0], n_parity, d, f"{name}_head.fq")
+    for who in ("cpu", "port"):
+        cfg = parse_args(["-i", ds["prefix"], "-f", head, "-o",
+                          os.path.join(d, f"{name}_{who}.sam"), "-j",
+                          os.path.join(d, f"{name}_{who}.tab"), "-silent",
+                          *allsj])
+        with contextlib.redirect_stdout(io.StringIO()):
+            run(idx, cfg, "cpu" if who == "cpu" else device)
+    require_same(d, f"{name}_port", f"{name}_cpu",
+                 f"{name} -all_sj -m, first {n_parity} reads")
+    log(f"  (d) {name} -all_sj -m: SAM and junction table byte-equal between "
+        f"the engines; first {n_parity} reads byte-equal to the port's CPU "
+        "path")
+    return res
+
+
+def phase_stream(big, ds, ds_pe, device: str, n_parity: int) -> dict:
+    """[stream], after phases 4 and 15: the long-stream paths (BASELINE
+    config 5's shape at 8 Mbp).
+
+    (a) 8mbp_se's file as N_STREAM_FILES -f files (1 M reads) through
+        ``dart_tpu_torch.stream`` with phase 4's flags and --checkpoint,
+        narrow engine with the K = 11 table: ``check_stream`` against
+        phase 4's one-file run, every kernel of the path launched once a
+        chunk, the card's memory flat (``hold_stream``);
+    (b) the same stream crashed in the second chunk of file 4, then
+        resumed, at --ckpt-interval 0 and at --ckpt-interval 2 with
+        --batch 16384 (the last save lags the crash): byte-equal to (a);
+    (c) the wide engine over N_WIDE_FILES files, held as (a);
+    (d) -all_sj -m (``allsj_se``) on 8mbp_se and on 8mbp_dup
+        (``make_dup``, where the flags change the outputs, which is
+        checked): narrow and wide byte-equal, the first n_parity reads
+        byte-equal to the port's CPU path; 8mbp_pe_bam through -bo, its
+        first n_parity pairs byte-equal to the CPU path; two processes
+        on the card against one over all of 8mbp_pe_bam (BAM) on its
+        own index and on 8mbp_dup's, and over 8mbp_se's reads on
+        8mbp_dup's (SAM): merged outputs and junction tables
+        byte-equal."""
+    import torch
+
+    from dart_tpu_torch import stream
+    from dart_tpu_torch.aligner import make_engine
+    from dart_tpu_torch.cli import parse_args
+    from dart_tpu_torch.index import load_index
+
+    out = os.path.join(WORK, "stream")
+    os.makedirs(out, exist_ok=True)
+    one = (os.path.join(WORK, "scale", "narrow.sam"),
+           os.path.join(WORK, "scale", "narrow.tab"))
+    narrow = ("seed_scan", "locate")
+    res = {}
+
+    torch.cuda.empty_cache()
+    args, outs = stream_args(ds, out, "a")
+    r = res["a"] = run_stream(big, args, N_STREAM_FILES, device)
+    engine = r.pop("engine")
+    stream.check_stream(outs, one, N_STREAM_FILES)
+    if engine.launches["lut_build"] < 1:
+        raise AssertionError("the stream's engine built no K-mer table")
+    hold_stream(r, f"(a) {r['stream_reads']} reads in {N_STREAM_FILES} "
+                "files", narrow)
+    res["a_launches"] = r["launches"]  # the stream's own, not the warm pass's
+    log(f"  (a) SAM and junction table pass check_stream against phase 4's "
+        f"one-file run: {N_STREAM_FILES} x the records, counts x "
+        f"{N_STREAM_FILES}")
+
+    per_file = r["reads_per_file"]
+    for tag, extra, lag in (("b0", ["--ckpt-interval", "0"], 0),
+                            ("b2", ["--ckpt-interval", "2", "--batch",
+                                    "16384"], 2)):
+        bargs, bouts = stream_args(ds, out, tag, extra=extra)
+        res[tag] = crash_and_resume(big, bargs, bouts, N_STREAM_FILES, device,
+                                    engine, per_file, lag)
+        require_same(out, tag, "a", f"({tag}) the crashed and resumed stream")
+        log(f"  ({tag}) {' '.join(extra)}: SAM and junction table byte-equal "
+            "to (a)")
+    os.remove(outs[0])
+    del engine, r
+    gc.collect()
+
+    torch.cuda.empty_cache()
+    args, outs = stream_args(ds, out, "c")
+    wide = make_engine(big, parse_args(args), device, wide=True)
+    r = res["c"] = run_stream(big, args, N_WIDE_FILES, device, wide)
+    r.pop("engine")
+    stream.check_stream(outs, one, N_WIDE_FILES)
+    hold_stream(r, f"(c) wide engine, {r['stream_reads']} reads in "
+                f"{N_WIDE_FILES} files", ("seed_scan_wide", "locate_wide"))
+    res["c_launches"] = r["launches"]
+    log("  (c) SAM and junction table pass check_stream against phase 4's "
+        "one-file run")
+    del wide
+    gc.collect()
+
+    allsj = ["-all_sj", "-m"]
+    d = os.path.join(out, "allsj")
+    os.makedirs(d, exist_ok=True)
+    dup = make_dup(ds)
+    dup_idx = load_index(dup["prefix"])
+    for name, idx, data in (("8mbp_se", big, ds), ("8mbp_dup", dup_idx, dup)):
+        res[f"d_{name}"] = allsj_se(idx, data, d, name, device, n_parity)
+    # the flags must change 8mbp_dup's outputs, or they were not tested
+    plain = align(dup_idx, dup, d, "8mbp_dup_plain", device, False)
+    counts = {}
+    for tag in ("8mbp_dup_plain", "8mbp_dup_narrow", "8mbp_se_narrow"):
+        with open(os.path.join(d, f"{tag}.sam"), "rb") as f:
+            n_rec = sum(1 for line in f if not line.startswith(b"@"))
+        with open(os.path.join(d, f"{tag}.tab")) as f:
+            counts[tag] = (n_rec, sum(1 for _ in f))
+    more = [b - a for a, b in zip(counts["8mbp_dup_plain"],
+                                  counts["8mbp_dup_narrow"])]
+    log(f"  (d) -all_sj -m on 8mbp_dup: {more[0]} more SAM records and "
+        f"{more[1]} more junction rows than without the flags "
+        f"({counts['8mbp_dup_plain']} records, rows); on 8mbp_se "
+        f"{counts['8mbp_se_narrow']} (every mapped read maps once, so the "
+        "flags change nothing there)")
+    if min(more) <= 0:
+        raise AssertionError("-all_sj -m changed nothing on 8mbp_dup")
+    res["d_dup_more"], res["d_dup_plain"] = more, plain
+
+    pe_idx = load_index(ds_pe["prefix"])
+    heads = (head_fastq(ds_pe["fq"][0], n_parity, d, "head_1.fq"),
+             head_fastq(ds_pe["fq"][1], n_parity, d, "head_2.fq"))
+    res["d_pe_head"] = pe_run(pe_idx, ds_pe, d, "pe_head", device, 1,
+                              fqs=heads, extra=allsj)
+    pe_run(pe_idx, ds_pe, d, "pe_head_cpu", "cpu", 1, fqs=heads, extra=allsj)
+    require_same(d, "pe_head", "pe_head_cpu",
+                 f"-all_sj -m -bo, first {n_parity} pairs", BAM)
+    log(f"  (d) 8mbp_pe_bam -all_sj -m -bo: first {n_parity} pairs byte-equal "
+        "to the CPU path")
+    dup_pe = {"prefix": dup["prefix"], "fq": ds_pe["fq"]}
+    res["d_pe"] = pe_run(pe_idx, ds_pe, d, "pe_one", device, 4, extra=allsj)
+    res["d_dup_pe"] = pe_run(dup_idx, dup_pe, d, "dup_pe_one", device, 4,
+                             extra=allsj)
+    # two processes on the card against one: all pairs of 8mbp_pe_bam on
+    # its own index and on 8mbp_dup's (BAM), and 8mbp_se's reads on
+    # 8mbp_dup's (SAM), the three pairs at once
+    procs = []
+    for tag, data, fmt in (("pe", ds_pe, "bam"), ("dup_pe", dup_pe, "bam"),
+                           ("8mbp_dup", dup, "sam")):
+        fq = (["-f", data["fq"][0]] if data["fq"][1] is None
+              else ["-f", data["fq"][0], "-f2", data["fq"][1]])
+        procs += start_pair(tag, [
+            "-i", data["prefix"], *fq, *allsj,
+            "-bo" if fmt == "bam" else "-o",
+            os.path.join(d, f"{tag}_two.{fmt}"), "-j",
+            os.path.join(d, f"{tag}_two.tab"), "-silent"], device)
+    t0 = time.perf_counter()
+    wait_procs(procs, timeout=600)
+    res["d_dist_wall_s"] = time.perf_counter() - t0
+    for two, one, exts in (("pe_two", "pe_one", BAM),
+                           ("dup_pe_two", "dup_pe_one", BAM),
+                           ("8mbp_dup_two", "8mbp_dup_narrow", ("sam",
+                                                                "tab"))):
+        require_same(d, two, one, f"-all_sj -m, two processes against one "
+                     f"({two})", exts)
+    log(f"  (d) two processes on the card against one, -all_sj -m: all "
+        f"{res['d_pe']['reads'] // 2} pairs of 8mbp_pe_bam (BAM) on its index "
+        "and on 8mbp_dup's, and 8mbp_se's reads on 8mbp_dup's (SAM), six "
+        f"processes at once in {res['d_dist_wall_s']:.1f} s with start-up: "
+        "merged outputs and junction tables byte-equal")
+    return res
+
+
+def rss_by_mapping(top: int = 8) -> list:
+    """This process's resident MB by mapping (/proc/self/smaps: the file
+    mapped, or "[anon]" for anonymous memory), the largest first."""
+    sizes, name = {}, "[anon]"
+    with open("/proc/self/smaps") as f:
+        for line in f:
+            head = line.split()
+            if "-" in head[0] and not head[0].endswith(":"):
+                name = head[5] if len(head) > 5 else "[anon]"
+            elif head[0] == "Rss:":
+                sizes[name] = sizes.get(name, 0) + int(head[1]) / 1024
+    return sorted(sizes.items(), key=lambda kv: -kv[1])[:top]
+
+
+def phase_stream_long(big, ds, device: str, n_files: int) -> dict:
+    """``--stream``: 8mbp_se's file as n_files -f files through
+    ``dart_tpu_torch.stream`` with -bo and --checkpoint (BAM bounds the
+    disk), narrow engine with the K = 11 table: ``check_stream`` against
+    the stream's own one-file warm pass, ``hold_stream`` as [stream]'s
+    (a), every chunk's line and the summary line logged."""
+    import torch
+
+    from dart_tpu_torch import stream
+
+    out = os.path.join(WORK, "stream_long")
+    os.makedirs(out, exist_ok=True)
+    torch.cuda.empty_cache()
+    args, outs = stream_args(ds, out, "long", "bam")
+    r = run_stream(big, args, n_files, device)
+    r.pop("engine")
+    stream.check_stream(outs, r["one_file"], n_files, "bam")
+    hold_stream(r, f"--stream: {r['stream_reads']} reads in {n_files} files",
+                ("seed_scan", "locate"))
+    log(f"  BAM and junction table pass check_stream against the one-file "
+        f"run ({os.path.getsize(outs[0])} BAM bytes)")
+    log(f"  host RSS {r['rss_mb_before_engine']:.1f} MB before the engine, "
+        f"{r['rss_mb_after_warm']:.1f} MB after the warm pass; by mapping "
+        "now: " + ", ".join(f"{os.path.basename(k)} {v:.1f} MB"
+                            for k, v in rss_by_mapping()))
+    os.remove(outs[0])
+    return r
 
 
 @contextlib.contextmanager
@@ -1874,14 +2285,47 @@ def phase_dryrun(device: str) -> dict:
     return res
 
 
+def start_pair(name: str, args, device: str) -> list:
+    """Ranks 0 and 1 of ``dart-tpu-torch args --dist-nprocs 2`` on a free
+    port, as [(name, rank, process)]."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    return [(name, pid, subprocess.Popen(
+        [sys.executable, "-m", "dart_tpu_torch.cli", *args, "--device",
+         device, "--dist-coordinator", f"127.0.0.1:{port}", "--dist-nprocs",
+         "2", "--dist-pid", str(pid)], cwd=HERE, env=env,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True))
+        for pid in range(2)]
+
+
+def wait_procs(procs, timeout: int = 300) -> None:
+    """Wait for every (name, rank, process); raise if one failed. Every
+    process still running at the end is killed."""
+    try:
+        for name, pid, p in procs:
+            err = p.communicate(timeout=timeout)[1]
+            if p.returncode != 0:
+                raise AssertionError(f"{name} rank {pid} -> {p.returncode}:\n"
+                                     f"{err[-3000:]}")
+    finally:
+        for _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
 def phase_dist(big, ds, device: str, n_reads: int) -> dict:
     """Two ``dart-tpu-torch --dist-nprocs 2`` processes for each of the
     goldens c3, c6, c7 and the first n_reads reads of 8mbp_se, all pairs
     at once (both ranks of a pair share the card when there is one):
     the merged outputs byte-equal to the goldens and to a one-process
     run."""
-    import socket
-
     out = os.path.join(WORK, "dist")
     os.makedirs(out, exist_ok=True)
     head = head_fastq(ds["fq"][0], n_reads, out)
@@ -1895,35 +2339,13 @@ def phase_dist(big, ds, device: str, n_reads: int) -> dict:
                  else f for f in GOLDEN[name]]
         jobs[name] = (["-i", os.path.join(GOLD, "index", "toy"), *flags],
                       os.path.join(GOLD, name))
-    env = dict(os.environ)
-    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
     procs = []
     t0 = time.perf_counter()
     for name, (args, _) in jobs.items():
-        s = socket.socket()
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-        s.close()
-        for pid in range(2):
-            cmd = [sys.executable, "-m", "dart_tpu_torch.cli", *args, "-o",
-                   os.path.join(out, f"{name}.sam"), "-j",
-                   os.path.join(out, f"{name}.tab"), "-silent", "--device",
-                   device, "--dist-coordinator", f"127.0.0.1:{port}",
-                   "--dist-nprocs", "2", "--dist-pid", str(pid)]
-            procs.append((name, pid, subprocess.Popen(
-                cmd, cwd=HERE, env=env, stdout=subprocess.DEVNULL,
-                stderr=subprocess.PIPE, text=True)))
-    try:
-        for name, pid, p in procs:
-            err = p.communicate(timeout=300)[1]
-            if p.returncode != 0:
-                raise AssertionError(f"{name} rank {pid} -> {p.returncode}:\n"
-                                     f"{err[-3000:]}")
-    finally:
-        for _, _, p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        procs += start_pair(name, [
+            *args, "-o", os.path.join(out, f"{name}.sam"), "-j",
+            os.path.join(out, f"{name}.tab"), "-silent"], device)
+    wait_procs(procs)
     wall = time.perf_counter() - t0
     for name, (_, want) in jobs.items():
         for ext, wext in (("sam", "sam"), ("tab", "junctions.tab"
@@ -2920,6 +3342,24 @@ def main() -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
+    if "--stream" in sys.argv[1:]:
+        args = sys.argv[1:]
+        files = (int(args[args.index("--files") + 1]) if "--files" in args
+                 else 100)
+        phase("build", do_build)
+        phase("dataset", make_dataset)
+        if {"build", "dataset"} <= set(state):
+            ds = state["dataset"]
+            phase("stream_long", lambda: phase_stream_long(
+                load_index(ds["prefix"]), ds, "cuda", files))
+        if failed or "stream_long" not in state:
+            log(f"chip_smoke --stream: failed phases: {', '.join(failed)}")
+            return 1
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     if "--cards" in sys.argv[1:]:
         phase("build", do_build)
         phase("dataset", make_dataset)
@@ -2955,6 +3395,9 @@ def main() -> int:
             if "dataset_pe" in state:
                 phase("outputs", lambda: phase_outputs(state["dataset_pe"],
                                                        "cuda", N_PARITY))
+            if {"scale", "outputs"} <= set(state):
+                phase("stream", lambda: phase_stream(
+                    big, ds, state["dataset_pe"], "cuda", N_PARITY))
             phase("nw", lambda: phase_nw(big, ds["prefix"], ds["fq"][0],
                                          "cuda", N_NW_READS, N_TIMED,
                                          20261017))
@@ -2996,8 +3439,8 @@ def main() -> int:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    if failed or not {"scale", "scale50", "outputs", "cache", "nw",
-                      "mem_walks", "mesh", "dryrun", "dist", "profile",
+    if failed or not {"scale", "scale50", "outputs", "stream", "cache",
+                      "nw", "mem_walks", "mesh", "dryrun", "dist", "profile",
                       "diagnosis"} <= set(state):
         log(f"chip_smoke: failed phases: {', '.join(failed) or 'none'}")
         return 1
@@ -3016,12 +3459,17 @@ def main() -> int:
 
     rows = [row(k, FM_SOURCE, KERNELS[k], launches[k], kern[k],
                 max(kern[k]["max_abs_err"], err50[k])) for k in KERNELS]
-    # the narrow kernels also run on the paired BAM path ([outputs])
+    # the narrow kernels also run on the paired BAM path ([outputs]),
+    # and on the 1 M-read stream ([stream] (a); the wide ones in (c))
     pe = state["outputs"]["t1"]["launches"]
+    st = {**state["stream"]["a_launches"], **state["stream"]["c_launches"]}
     for r in rows:
         if r["name"] in pe:
             r["launches_by_path"] = {"8mbp_se": r["launches"],
                                      "8mbp_pe_bam": pe[r["name"]]}
+        if r["name"] in st:
+            r.setdefault("launches_by_path", {"8mbp_se": r["launches"]})[
+                "stream"] = st[r["name"]]
     for name, source, replaces in (
             ("nw", NW_SOURCE, NW_REPLACES),
             ("mem_walks", FM_SOURCE, MEM_WALKS_REPLACES)):

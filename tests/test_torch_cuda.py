@@ -179,6 +179,30 @@ def every12_index(tmp_path_factory, data_dir):
     return load_index(prefix)
 
 
+@pytest.mark.parametrize("which", ["narrow", "narrow_lut", "wide",
+                                   "wide_lut"])
+def test_seed_scan_kernels_on_the_division_grid(which, gpu_engine,
+                                                every12_index):
+    """K1 / K4, with the K = 11 table and without, on the every-12 index:
+    every seed of these reads is located inside the scan, whose locate
+    then steps on the division grid (``sa_rem`` / ``sa_div``). Equal to
+    the plain scan, and to the scan on the toy index (samples every 32
+    rows), which locates the same seeds at the same positions."""
+    eng = FMIndexTorch(every12_index, "cuda", lut_k=11 if "lut" in which
+                       else 0, wide=which.startswith("wide"))
+    assert eng.sa_intv == 12
+    t, words, S = _packed_reads(every12_index)
+    got = eng.seed_scan(t, words, S)
+    torch.testing.assert_close(got, eng.plain_seed_scan(t, words, S),
+                               rtol=0, atol=0)
+    n, freq = got[:, 0].long(), got[:, 1 + 3 * S:1 + 4 * S]
+    valid = torch.arange(S, device=got.device)[None, :] < n[:, None]
+    assert int(valid.sum()) > 0 and bool((freq[valid] == -1).all())
+    torch.testing.assert_close(got.long(), gpu_engine.seed_scan(
+        t, words, S).long(), rtol=0, atol=0)
+    assert eng.n_seed_launches == 1
+
+
 def locate_row_set(idx, kind: str) -> np.ndarray:
     """65,536 random rows, or runs of consecutive rows k0 .. k0 + freq - 1
     (freq 2 .. 100, one across the primary row) as the main path's

@@ -2,7 +2,8 @@
 two local ``dart-tpu-torch --device cpu`` processes joined by
 ``torch.distributed`` (gloo over TCP) align byte-range or round-robin
 shards of the input and merge them into the single-process output, in
-the pattern of tests/test_distributed.py: the goldens, BAM output, and
+the pattern of tests/test_distributed.py: the goldens (-all_sj's merged
+junction table and -m's multiple alignments among them), BAM output, and
 a resume from per-process checkpoints after an injected crash. Each
 pair of processes is killed if it outlives its time limit."""
 
@@ -62,6 +63,10 @@ def run_pair(args, env_extra=None):
     ("pe_1.fq.gz", "c6_pe_gz", ["-f2", "{DATA}/pe_2.fq.gz", "-mis", "5",
                                 "--batch", "64"]),
     ("pe_inter.fq", "c7_pe_inter", ["-p", "-mis", "5", "--batch", "64"]),
+    # -all_sj: every shard's junction rows merge into one table; -m:
+    # every alignment of a multi-mapped read, in the merged order
+    ("spliced_mm.fq", "c4_spliced_mm", ["-mis", "5", "-all_sj"]),
+    ("se_exact.fa", "c8_multi", ["-m"]),
 ])
 def test_two_process_run_matches_golden(tmp_path, reads, golden, extra):
     out, sj = tmp_path / "out.sam", tmp_path / "junctions.tab"

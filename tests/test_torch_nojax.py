@@ -4,7 +4,9 @@ refused, the port imports (its gap DP, entry step, device grid and
 multi-host modules among the rest), aligns golden configs on one device
 (through the native and the pure-Python host pipeline, SAM and BAM) and
 one on a ``--mesh data=2,index=2`` grid, builds an index, runs ``eva``,
-runs the entry step and a batch of gap DPs, and no attempt was made.
+runs the entry step and a batch of gap DPs, streams a golden's reads
+twice through ``dart_tpu_torch.stream`` (which, without a card, refuses
+its default ``cuda``), and no attempt was made.
 The outputs are then held here, where ``dart_tpu`` may be imported,
 against the goldens and against ``dart_tpu``'s own."""
 
@@ -37,6 +39,7 @@ SCRIPT = textwrap.dedent("""
     import dart_tpu_torch.entry, dart_tpu_torch.ops.nw_torch
     import dart_tpu_torch.parallel.mesh, dart_tpu_torch.parallel.distributed
     import dart_tpu_torch.evaluation, dart_tpu_torch.io.bam
+    import dart_tpu_torch.stream
     import torch
     from dart_tpu_torch.cli import main
     from dart_tpu_torch.entry import entry
@@ -59,6 +62,19 @@ SCRIPT = textwrap.dedent("""
                     "-o", out + "/m.sam", "-j", out + "/m.tab", "-silent",
                     "--device", "cpu", "--mesh", "data=2,index=2"])
     rc_index = main(["index", data + "/toy.fa", out + "/idx"])
+    stream_args = ["-i", toy, "-f", data + "/spliced.fa", "-o",
+                   out + "/st.sam", "-j", out + "/st.tab", "-silent",
+                   "--files", "2"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc_stream = dart_tpu_torch.stream.main([*stream_args, "--device",
+                                                "cpu"])
+    no_card_raises = True
+    if not torch.cuda.is_available():
+        try:
+            dart_tpu_torch.stream.main(stream_args)
+            no_card_raises = False
+        except RuntimeError:
+            pass
     eva = io.StringIO()
     with contextlib.redirect_stdout(eva):
         rc_eva = main(["eva", gold + "/c3_spliced.sam", data + "/toy.fa"])
@@ -68,7 +84,8 @@ SCRIPT = textwrap.dedent("""
     aligned = nw_align_batch([(b"AACCGG", b"AACGG"), (b"", b"ACG")], "cpu")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("jax", "jaxlib", "dart_tpu"))
-    print(json.dumps({"rc": [rc, rc_py, rc_bam, rc_mesh, rc_index, rc_eva],
+    print(json.dumps({"rc": [rc, rc_py, rc_bam, rc_mesh, rc_index, rc_eva,
+                             rc_stream], "no_card_raises": no_card_raises,
                       "attempts": attempts, "loaded": loaded,
                       "eva": eva.getvalue(), "entry_same": same,
                       "entry_accepted": int((got[2] >= 0).sum()),
@@ -86,7 +103,8 @@ def test_port_never_imports_jax(golden_dir, data_dir, tmp_path):
     got = json.loads(res.stdout.strip().splitlines()[-1])
     eva = got.pop("eva")
     assert got.pop("entry_accepted") > 0
-    assert got == {"rc": [0] * 6, "attempts": [], "loaded": [],
+    assert got == {"rc": [0] * 7, "no_card_raises": True,
+                   "attempts": [], "loaded": [],
                    "entry_same": True,
                    "aligned": [["AACCGG", "-AACGG"], ["---", "ACG"]]}
 
@@ -100,6 +118,11 @@ def test_port_never_imports_jax(golden_dir, data_dir, tmp_path):
     same("b.tab", "c3_spliced.junctions.tab")
     for ext in (".bwt", ".sa", ".pac", ".ann", ".amb"):
         same(f"idx{ext}", f"index/toy{ext}")
+    from dart_tpu_torch.stream import check_stream
+
+    check_stream((str(tmp_path / "st.sam"), str(tmp_path / "st.tab")),
+                 (str(golden_dir / "c3_spliced.sam"),
+                  str(golden_dir / "c3_spliced.junctions.tab")), 2)
 
     # the BAM bytes and the eva report equal dart_tpu's own
     cfg = DartConfig()
