@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``dart_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py            # one card: phases 1-17 below
+    python3 chip_smoke.py            # one card: phases 1-18 below
     python3 chip_smoke.py --cards    # two cards or more: phase_cards only
     python3 chip_smoke.py --big [--gbp 1.1]   # one card: phase_big only
     python3 chip_smoke.py --stream [--files 100]   # one card: a long stream
@@ -166,7 +166,24 @@ the root of a checkout it:
     byte-equal to the CPU path; two processes on the card against one
     over all 50,000 pairs (BAM) on its index and on 8mbp_dup's, and over
     8mbp_se's reads on 8mbp_dup's (SAM), merged outputs and junction
-    tables byte-equal.
+    tables byte-equal;
+18. ``[spliced]``, after phase 15 and before phase 17
+    (``phase_spliced``): ``8mbp_sp``, 50,000 pairs of 100 bases from
+    ``spliced_pair_set`` (70% genomic pairs, 30% cut from the planted
+    genes' transcripts, 0.5% mismatches, generated in a child process
+    from the start) on 8mbp_se's genome and index, ``-mis 5``: (a) the
+    narrow engine (K = 11 table) and the wide engine forced, SAM, the
+    whole set byte-equal between the two and the first 5,000 pairs to
+    the port's CPU path; (b) ``-bo`` at ``-t 4`` against ``-t 1``; (c)
+    a ``--checkpoint`` run crashed in its third chunk and resumed; (d)
+    two processes on the card against one; (e) ``-all_sj -m`` on
+    8mbp_dup's index, narrow against wide and against the CPU path,
+    the flags required to add records and junction rows; (f)
+    ``-min_intron 2000``, held to the CPU path and required to change
+    the output, and ``-max_dup 10000`` held to the CPU path; each run's
+    ``[stats]`` line (wall and stage split), the card's name and power
+    limit, and its counts of records, spliced records, proper pairs,
+    unmapped mates and junction rows.
 
 ``--stream [--files N]`` (``phase_stream_long``) streams ``8mbp_se``'s
 file N times (default 100: 10 M reads, 200 chunks) through
@@ -210,7 +227,8 @@ before the last is a JSON object with each kernel's launches on its
 path (phase 4 for K1-K6, phases 7 and 8 for the gap DP and the MEM
 walk, phase 9's ``data=2,index=2`` runs for the ``*_sharded`` kernels
 but the MEM walk's, which is the dry run's; ``launches_by_path`` adds the
-paired BAM path of phase 15 and the stream of phase 17), its largest
+paired BAM path of phase 15, the spliced pairs of phase 18 (its (a)
+runs, narrow and wide) and the stream of phase 17), its largest
 difference
 from the plain version, and both times (at the 8 Mbp index for the FM
 kernels, at index=2 for the sharded ones), its bound (the bytes it
@@ -235,11 +253,6 @@ import subprocess
 import sys
 import time
 import traceback
-
-# any attempt to import JAX, or the JAX package, fails loudly: the port
-# stands alone
-sys.modules["jax"] = None
-sys.modules["dart_tpu"] = None
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(HERE, "chip_smoke_work")
@@ -283,8 +296,28 @@ SHARDED = ("seed_scan_sharded", "locate_sharded", "lut_build_sharded",
            "lut_build_wide_sharded", "mem_walks_sharded")
 
 
+def refuse_jax() -> None:
+    """Make any later attempt to import JAX, or the JAX package, fail
+    loudly: the port stands alone. The run and its child processes call
+    it; the tests that import this module for its read generators (and
+    import ``dart_tpu`` themselves) do not."""
+    sys.modules["jax"] = None
+    sys.modules["dart_tpu"] = None
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def fixtures():
+    """``tools/make_fixtures.py``, the generators of the repo's test data
+    (genomes, planted genes, reads)."""
+    tools = os.path.join(HERE, "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import make_fixtures
+
+    return make_fixtures
 
 
 def make_dataset(name: str = "8mbp_se"):
@@ -292,19 +325,20 @@ def make_dataset(name: str = "8mbp_se"):
     made in the steps of ``bench.ensure_dataset`` (its ``CONFIGS``,
     ``SEED`` and ``READ_LEN``, ``tools/make_fixtures.py``'s generators)
     with the port's own index builder; a paired config's reads as
-    ``bench.py`` simulates them (``sim_reads_paired``). Files that
-    exist are kept. Returns {"fq": (reads, None) or (mates 1, mates 2),
-    "prefix", "dir"}."""
+    ``bench.py`` simulates them (``sim_reads_paired``); ``8mbp_sp``
+    through ``make_spliced_pairs``. Files that exist are kept. Returns
+    {"fq": (reads, None) or (mates 1, mates 2), "prefix", "dir"}."""
     import random
 
+    if name == SPLICED_PAIRS:
+        return make_spliced_pairs()
     if HERE not in sys.path:
         sys.path.insert(0, HERE)
     import bench  # its CONFIGS and seeds; importing it runs nothing
 
-    import make_fixtures as mf  # on sys.path through bench
-
     from dart_tpu_torch.index import build_index
 
+    mf = fixtures()
     spec = bench.CONFIGS[name]
     d = os.path.join(WORK, name)
     fa = os.path.join(d, "genome.fa")
@@ -316,11 +350,7 @@ def make_dataset(name: str = "8mbp_se"):
            else (fq, None))
     os.makedirs(d, exist_ok=True)
     if not os.path.exists(fa):
-        rng = random.Random(bench.SEED)
-        genome = mf.make_genome(rng, spec["genome"], n_runs=4)
-        n_genes = max(50, sum(spec["genome"].values()) // 50000)
-        genome["chr1"], genes = mf.plant_genes(rng, genome["chr1"],
-                                               n_genes=n_genes)
+        genome, genes = bench_genome(spec)
         with open(os.path.join(d, "genes.txt"), "w") as f:
             for exs in genes:
                 f.write("chr1\t" + ",".join(f"{a}-{b}" for a, b in exs)
@@ -331,16 +361,11 @@ def make_dataset(name: str = "8mbp_se"):
         rng = random.Random(bench.SEED + 1)
         r1, r2 = mf.sim_reads_paired(rng, read_genome(fa), n // 2,
                                      bench.READ_LEN, mismatch_rate=0.005)
-        for path, reads in zip(fqs, (r1, r2)):
-            mf.write_reads_fastq(path + ".tmp", reads)
-        for path in fqs:
-            os.replace(path + ".tmp", path)
+        write_pairs(fqs, (r1, r2))
     if not spec["paired"] and not os.path.exists(fq):
         rng = random.Random(bench.SEED + 1)
         genome = read_genome(fa)
-        with open(os.path.join(d, "genes.txt")) as f:
-            genes = [[tuple(map(int, p.split("-"))) for p in
-                      line.split("\t")[1].split(",")] for line in f]
+        genes = [exs for _, exs in read_genes(os.path.join(d, "genes.txt"))]
         n_spliced = n * 3 // 10
         reads = mf.sim_reads_genomic(rng, genome, n - n_spliced,
                                      bench.READ_LEN, 0.005, tag="g")
@@ -353,6 +378,126 @@ def make_dataset(name: str = "8mbp_se"):
     if not os.path.exists(prefix + ".bwt"):
         build_index(fa, prefix)
     return {"fq": fqs, "prefix": prefix, "dir": d}
+
+
+def bench_genome(spec: dict):
+    """bench.py's genome of config ``spec`` (its seed, chromosomes and
+    planted genes on chr1): ({name: sequence}, [exons of each gene])."""
+    import random
+
+    import bench
+
+    mf = fixtures()
+    rng = random.Random(bench.SEED)
+    genome = mf.make_genome(rng, spec["genome"], n_runs=4)
+    n_genes = max(50, sum(spec["genome"].values()) // 50000)
+    genome["chr1"], genes = mf.plant_genes(rng, genome["chr1"],
+                                           n_genes=n_genes)
+    return genome, genes
+
+
+def write_pairs(fqs, pairs) -> None:
+    """Mates 1 and 2 as FASTQ files, each written whole or not at all."""
+    mf = fixtures()
+    for path, reads in zip(fqs, pairs):
+        mf.write_reads_fastq(path + ".tmp", reads)
+    for path in fqs:
+        os.replace(path + ".tmp", path)
+
+
+def read_genes(path: str) -> list:
+    """A ``genes.txt`` (``chrom<TAB>start-end,...``, ``plant_genes``'
+    exons, 0-based, end exclusive) as [(chrom, [(start, end), ...])]."""
+    with open(path) as f:
+        return [(chrom, [tuple(map(int, p.split("-")))
+                         for p in exons.split(",")])
+                for chrom, exons in (line.rstrip("\n").split("\t")
+                                     for line in f if line.strip())]
+
+
+def sim_pairs_spliced(rng, genome: dict, genes: list, n: int, rlen: int,
+                      insert=(200, 500), mismatch_rate: float = 0.0,
+                      tag: str = "s"):
+    """n read pairs cut from spliced transcripts, as ``sim_reads_paired``
+    cuts them from the genome: a fragment of a transcript (a gene's exons
+    concatenated; ``genes`` as ``read_genes`` gives them) of a length
+    uniform in ``insert``, capped at the transcript's, from either
+    strand; mate 1 is its first rlen bases and mate 2 the reverse
+    complement of its last rlen, each with ``mismatch_rate``
+    substitutions. Transcripts shorter than the least insert are
+    skipped. Both mates are named ``{tag}{i}_{chrom}:t{pos}_F|R`` (pos:
+    the fragment's offset in the transcript). Returns (mates 1, mates
+    2) as lists of (name, sequence)."""
+    mf = fixtures()
+    transcripts = [(chrom, "".join(genome[chrom][a:b] for a, b in exs))
+                   for chrom, exs in genes]
+    transcripts = [t for t in transcripts if len(t[1]) >= insert[0]]
+    r1, r2 = [], []
+    for i in range(n):
+        chrom, t = transcripts[rng.randrange(len(transcripts))]
+        isz = min(rng.randrange(*insert), len(t))
+        pos = rng.randrange(len(t) - isz + 1)
+        frag = t[pos:pos + isz]
+        strand = rng.random() < 0.5
+        if strand:
+            frag = mf.revcomp(frag)
+        name = f"{tag}{i}_{chrom}:t{pos}{'_R' if strand else '_F'}"
+        r1.append((name, mf.mutate(rng, frag[:rlen], mismatch_rate)))
+        r2.append((name, mf.mutate(rng, mf.revcomp(frag[-rlen:]),
+                                   mismatch_rate)))
+    return r1, r2
+
+
+def spliced_pair_set(rng, genome: dict, genes: list, n: int, rlen: int,
+                     mismatch_rate: float = 0.005):
+    """8mbp_se's read mix as pairs: 70% genomic pairs
+    (``sim_reads_paired``, tag "g") and 30% spliced ones
+    (``sim_pairs_spliced``), shuffled together: (mates 1, mates 2)."""
+    mf = fixtures()
+    n_sp = n * 3 // 10
+    g1, g2 = mf.sim_reads_paired(rng, genome, n - n_sp, rlen,
+                                 mismatch_rate=mismatch_rate, tag="g")
+    s1, s2 = sim_pairs_spliced(rng, genome, genes, n_sp, rlen,
+                               mismatch_rate=mismatch_rate)
+    pairs = list(zip(g1 + s1, g2 + s2))
+    rng.shuffle(pairs)
+    return [a for a, _ in pairs], [b for _, b in pairs]
+
+
+SPLICED_PAIRS = "8mbp_sp"  # spliced_pair_set on 8mbp_se's genome and genes
+N_SP_PAIRS = 50_000
+
+
+def make_spliced_pairs() -> dict:
+    """``8mbp_sp``: N_SP_PAIRS pairs of 100 bases (``spliced_pair_set``,
+    0.5% mismatches, seed bench.SEED + 2) on 8mbp_se's genome and genes,
+    read from its files when they are there, else made again from
+    bench.py's seed in memory (so that a child process can start before
+    8mbp_se's files are written). It reuses 8mbp_se's index: nothing new
+    is built. Returns a data set dict as ``make_dataset`` does."""
+    import random
+
+    if HERE not in sys.path:
+        sys.path.insert(0, HERE)
+    import bench
+
+    se = os.path.join(WORK, "8mbp_se")
+    d = os.path.join(WORK, SPLICED_PAIRS)
+    fqs = (os.path.join(d, f"pairs_{N_SP_PAIRS}_1.fq"),
+           os.path.join(d, f"pairs_{N_SP_PAIRS}_2.fq"))
+    if not os.path.exists(fqs[1]):
+        os.makedirs(d, exist_ok=True)
+        fa = os.path.join(se, "genome.fa")
+        if os.path.exists(fa):  # genes.txt is written before it
+            genome = read_genome(fa)
+            genes = read_genes(os.path.join(se, "genes.txt"))
+        else:
+            genome, exons = bench_genome(bench.CONFIGS["8mbp_se"])
+            genes = [("chr1", exs) for exs in exons]
+        write_pairs(fqs, spliced_pair_set(
+            random.Random(bench.SEED + 2), genome, genes, N_SP_PAIRS,
+            bench.READ_LEN))
+    return {"fq": fqs, "prefix": os.path.join(se, "idx"), "dir": d}
 
 
 def read_genome(fa: str) -> dict:
@@ -374,7 +519,8 @@ def start_dataset(name: str) -> subprocess.Popen:
     """make_dataset(name) in a child process, to overlap with the card."""
     return subprocess.Popen(
         [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
-         " import chip_smoke; chip_smoke.make_dataset(sys.argv[2])",
+         " import chip_smoke; chip_smoke.refuse_jax();"
+         " chip_smoke.make_dataset(sys.argv[2])",
          HERE, name], cwd=HERE, stdout=subprocess.DEVNULL,
         stderr=subprocess.PIPE, text=True)
 
@@ -747,7 +893,8 @@ def long_plain() -> None:
 def start_long_plain() -> subprocess.Popen:
     return subprocess.Popen(
         [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
-         " import chip_smoke; chip_smoke.long_plain()", HERE], cwd=HERE,
+         " import chip_smoke; chip_smoke.refuse_jax();"
+         " chip_smoke.long_plain()", HERE], cwd=HERE,
         stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
 
 
@@ -1139,18 +1286,22 @@ BAM = ("bam", "tab")  # a -bo run's outputs
 
 
 def pe_run(idx, ds, out: str, tag: str, device: str, threads: int,
-           fqs=None, extra=(), engine_hook=None) -> dict:
+           fqs=None, extra=(), engine_hook=None, fmt: str = "bam",
+           wide: bool | None = None) -> dict:
     """``dart-tpu-torch -i idx -f r1 -f2 r2 -bo <tag>.bam -t threads``
-    through ``aligner.run`` (the engine, and its launch counts, made
-    inside it), or, with ``engine_hook``, through a ``DartAligner`` the
-    hook may change before its run. Logs and returns the wall (set-up
-    included), the mapping wall of ``--stats`` and the launches."""
+    (``-o <tag>.sam`` with ``fmt`` "sam"; the wide engine forced with
+    ``wide``) through ``aligner.run`` (the engine, and its launch counts,
+    made inside it), or, with ``engine_hook``, through a ``DartAligner``
+    the hook may change before its run. Logs and returns the wall (set-up
+    included), the ``--stats`` lines (the mapping wall and the stage
+    split, on one log line) and the launches."""
     from dart_tpu_torch.aligner import DartAligner, make_engine, run
     from dart_tpu_torch.cli import parse_args
 
     r1, r2 = fqs or ds["fq"]
-    cfg = parse_args(["-i", ds["prefix"], "-f", r1, "-f2", r2, "-bo",
-                      os.path.join(out, f"{tag}.bam"), "-j",
+    cfg = parse_args(["-i", ds["prefix"], "-f", r1, "-f2", r2,
+                      "-bo" if fmt == "bam" else "-o",
+                      os.path.join(out, f"{tag}.{fmt}"), "-j",
                       os.path.join(out, f"{tag}.tab"), "-t", str(threads),
                       "-silent", "--stats", *extra])
     err = io.StringIO()
@@ -1158,10 +1309,10 @@ def pe_run(idx, ds, out: str, tag: str, device: str, threads: int,
     with contextlib.redirect_stdout(io.StringIO()), \
             contextlib.redirect_stderr(err):
         if engine_hook is None:
-            aligner = run(idx, cfg, device)
+            aligner = run(idx, cfg, device, wide=wide)
         else:
-            aligner = DartAligner(idx, cfg,
-                                  engine=make_engine(idx, cfg, device))
+            aligner = DartAligner(idx, cfg, engine=make_engine(
+                idx, cfg, device, wide=wide))
             engine_hook(aligner)
             aligner.run()
     if device == "cuda":
@@ -1169,14 +1320,14 @@ def pe_run(idx, ds, out: str, tag: str, device: str, threads: int,
 
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    stats = [ln for ln in err.getvalue().splitlines()
-             if ln.startswith("[stats] wall")]
+    stats = [ln[8:] for ln in err.getvalue().splitlines()
+             if ln.startswith("[stats]")]
     launches = {k: v for k, v in aligner.engine.launches.items()
                 if not k.startswith("mem_walks")}
     n = aligner.counters["total"]
     log(f"  {tag}: {n} reads ({n // 2} pairs) in {wall:.3f} s wall incl. "
-        f"set-up, -t {threads}, {device} ({CARD}); "
-        f"{stats[0][8:] if stats else 'no [stats] line'}; launches "
+        f"set-up, -t {threads}, {device} ({CARD}); [stats] "
+        f"{'; '.join(stats) if stats else 'none'}; launches "
         + ", ".join(f"{k} {v}" for k, v in launches.items()))
     return {"wall_s": wall, "stats": stats, "launches": launches,
             "reads": n}
@@ -1188,6 +1339,41 @@ def same_bam(a: str, b: str) -> bool:
 
     with gzip.open(a, "rb") as fa, gzip.open(b, "rb") as fb:
         return fa.read() == fb.read()
+
+
+def crash_resume_pe(idx, ds, out: str, device: str, batch: int, extra,
+                    ref: str) -> dict:
+    """A ``--checkpoint --batch <batch>`` run of ``pe_run`` (``extra``
+    flags added), and the same run crashed in its third chunk, then
+    resumed: BAM and junction table byte-equal to the uninterrupted run,
+    records equal to out/<ref>.bam's. Returns both runs."""
+    ckpt = ["--checkpoint", "--batch", str(batch), *extra]
+    res = {"whole": pe_run(idx, ds, out, "whole", device, 1, extra=ckpt)}
+    crash, _ = crash_hook(sys.maxsize, 0, 3)  # one file: its third chunk
+    try:
+        pe_run(idx, ds, out, "resumed", device, 1, extra=ckpt,
+               engine_hook=crash)
+        raise AssertionError("the injected crash did not stop the run")
+    except RuntimeError as e:
+        if str(e) != "injected crash":
+            raise
+    gc.collect()  # the crashed run's writer goes, as with its process
+    bam = os.path.join(out, "resumed.bam")
+    if not os.path.exists(bam + ".ckpt"):
+        raise AssertionError("the crashed run left no checkpoint")
+    cut = os.path.getsize(bam)
+    res["resumed"] = pe_run(idx, ds, out, "resumed", device, 1, extra=ckpt)
+    if os.path.exists(bam + ".ckpt"):
+        raise AssertionError("the resumed run left its checkpoint")
+    require_same(out, "resumed", "whole",
+                 "the crashed and resumed --checkpoint run", BAM)
+    if not same_bam(bam, os.path.join(out, f"{ref}.bam")):
+        raise AssertionError(f"the --checkpoint run's records differ from "
+                             f"the {ref} run's")
+    log(f"  --checkpoint --batch {batch}: crashed in chunk 3 ({cut} BAM "
+        "bytes on disk), resumed: BAM and junction table byte-equal to an "
+        f"uninterrupted --checkpoint run, records equal to the {ref} run's")
+    return res
 
 
 def phase_outputs(ds, device: str, n_parity: int, batch: int = 8192) -> dict:
@@ -1221,33 +1407,177 @@ def phase_outputs(ds, device: str, n_parity: int, batch: int = 8192) -> dict:
                  f"first {n_parity} pairs, {device} against the CPU path", BAM)
     log(f"  first {n_parity} pairs: BAM and junction table byte-equal to "
         "the port's CPU path (plain versions)")
+    res.update(crash_resume_pe(idx, ds, out, device, batch, (), "t1"))
+    return res
 
-    ckpt = ["--checkpoint", "--batch", str(batch)]
-    res["whole"] = pe_run(idx, ds, out, "whole", device, 1, extra=ckpt)
-    crash, _ = crash_hook(sys.maxsize, 0, 3)  # one file: its third chunk
-    try:
-        pe_run(idx, ds, out, "resumed", device, 1, extra=ckpt,
-               engine_hook=crash)
-        raise AssertionError("the injected crash did not stop the run")
-    except RuntimeError as e:
-        if str(e) != "injected crash":
-            raise
-    gc.collect()  # the crashed run's writer goes, as with its process
-    bam = os.path.join(out, "resumed.bam")
-    if not os.path.exists(bam + ".ckpt"):
-        raise AssertionError("the crashed run left no checkpoint")
-    cut = os.path.getsize(bam)
-    res["resumed"] = pe_run(idx, ds, out, "resumed", device, 1, extra=ckpt)
-    if os.path.exists(bam + ".ckpt"):
-        raise AssertionError("the resumed run left its checkpoint")
-    require_same(out, "resumed", "whole",
-                 "the crashed and resumed --checkpoint run", BAM)
-    if not same_bam(bam, os.path.join(out, "t1.bam")):
-        raise AssertionError("the --checkpoint run's records differ from "
-                             "the -t 1 run's")
-    log(f"  --checkpoint --batch {batch}: crashed in chunk 3 ({cut} BAM "
-        "bytes on disk), resumed: BAM and junction table byte-equal to an "
-        "uninterrupted --checkpoint run, records equal to the -t 1 run's")
+
+MIN_INTRON = 2000  # [spliced] (f): drops the planted introns below it
+
+
+def aln_counts(path: str, tab: str) -> dict:
+    """A SAM or BAM file's records, spliced records (an N in the CIGAR),
+    records flagged as a proper pair, unmapped records, and the junction
+    table's rows."""
+    import gzip
+    import struct
+
+    n = {"records": 0, "spliced": 0, "proper": 0, "unmapped": 0}
+
+    def count(flag: int, spliced: bool) -> None:
+        n["records"] += 1
+        n["spliced"] += spliced
+        n["proper"] += flag & 2 != 0
+        n["unmapped"] += flag & 4 != 0
+
+    if path.endswith(".bam"):
+        with gzip.open(path, "rb") as f:
+            data = f.read()
+        l_text = struct.unpack_from("<i", data, 4)[0]
+        off = 8 + l_text
+        n_ref = struct.unpack_from("<i", data, off)[0]
+        off += 4
+        for _ in range(n_ref):
+            off += 8 + struct.unpack_from("<i", data, off)[0]
+        while off < len(data):
+            size, = struct.unpack_from("<i", data, off)
+            l_name = data[off + 12]
+            n_cigar, flag = struct.unpack_from("<HH", data, off + 16)
+            cig = struct.unpack_from(f"<{n_cigar}I", data, off + 36 + l_name)
+            count(flag, any(c & 15 == 3 for c in cig))
+            off += 4 + size
+    else:
+        with open(path, "rb") as f:
+            for line in f:
+                if not line.startswith(b"@"):
+                    fields = line.split(b"\t", 6)
+                    count(int(fields[1]), b"N" in fields[5])
+    with open(tab, "rb") as f:
+        n["rows"] = sum(1 for _ in f)
+    return n
+
+
+def phase_spliced(big, ds, sp, device: str, n_parity: int,
+                  batch: int = 8192) -> dict:
+    """[spliced], after [outputs] and before [stream]: 8mbp_sp's pairs
+    (``make_spliced_pairs``: 70% genomic, 30% cut from spliced
+    transcripts, on 8mbp_se's genome and index) through the main path,
+    -mis 5 unless stated.
+
+    (a) the narrow engine (K = 11 table) and the wide engine forced,
+        SAM: the whole set byte-equal between the two, the first
+        n_parity pairs of both byte-equal to the port's CPU path;
+    (b) -bo at -t 4 against -t 1, the whole set, BAM and junction table;
+    (c) a --checkpoint run (``batch`` reads a chunk) crashed in its
+        third chunk, then resumed: byte-equal to the uninterrupted run,
+        records equal to (b)'s -t 1;
+    (d) two --dist-nprocs 2 processes on the card against (b)'s -t 1,
+        merged BAM and junction table byte-equal;
+    (e) -all_sj -m on 8mbp_dup's index (``make_dup``), where the pairs
+        from chr1's first DUP_GENES genes map twice: narrow against wide,
+        the first n_parity pairs against the CPU path, and the flags
+        change the records and the junction rows (checked);
+    (f) -min_intron MIN_INTRON, held to the CPU path on the first
+        n_parity pairs and differing from (a) on the whole set (checked);
+        -max_dup 10000 held to the CPU path for parity only (on these
+        genomes no seed occurs more than 100 times, where it would bite).
+
+    Every run logs its [stats] line and its counts (``aln_counts``); K1-K3
+    must launch in every narrow run of a whole set on the card, K4-K6 in
+    the wide ones. Returns each run's walls, [stats] lines, launches and
+    counts."""
+    from dart_tpu_torch.index import load_index
+
+    out = os.path.join(WORK, "spliced")
+    os.makedirs(out, exist_ok=True)
+    mis = ["-mis", "5"]
+    res = {}
+
+    def pe(tag, data, threads=1, idx=big, fqs=None, extra=(), fmt="sam",
+           wide=None, on=device):
+        r = res[tag] = pe_run(idx, data, out, tag, on, threads, fqs=fqs,
+                              extra=[*mis, *extra], fmt=fmt, wide=wide)
+        r["counts"] = aln_counts(os.path.join(out, f"{tag}.{fmt}"),
+                                 os.path.join(out, f"{tag}.tab"))
+        log(f"    {tag}: {r['counts']}")
+        # a whole set's run launches every kernel; on a head the scan
+        # may locate every seed itself, and the locate not launch
+        if on == "cuda" and fqs is None and not all(r["launches"].values()):
+            raise AssertionError(f"{tag}: a kernel of the path never "
+                                 f"launched: {r['launches']}")
+        if on == "cuda" and bool(wide) != ("seed_scan_wide" in r["launches"]):
+            raise AssertionError(f"{tag}: not the engine asked for: "
+                                 f"{r['launches']}")
+        return r
+
+    heads = (head_fastq(sp["fq"][0], n_parity, out, "head_1.fq"),
+             head_fastq(sp["fq"][1], n_parity, out, "head_2.fq"))
+
+    def held_to_cpu(tag, data, idx=big, extra=(), wides=(None,)):
+        """The first n_parity pairs on the card (each engine of wides)
+        and on the CPU path, byte-equal."""
+        pe(f"{tag}_head_cpu", data, idx=idx, fqs=heads, extra=extra,
+           on="cpu")
+        for w in wides:
+            name = f"{tag}_head{'_wide' if w else ''}"
+            pe(name, data, idx=idx, fqs=heads, extra=extra, wide=w)
+            require_same(out, name, f"{tag}_head_cpu",
+                         f"({tag}) first {n_parity} pairs, the card "
+                         "against the CPU path")
+        log(f"  ({tag}) first {n_parity} pairs: SAM and junction table "
+            "byte-equal to the port's CPU path")
+
+    pe("a", sp)
+    pe("a_wide", sp, wide=True)
+    require_same(out, "a_wide", "a", "(a) wide against narrow")
+    log(f"  (a) all {res['a']['reads'] // 2} pairs: SAM and junction table "
+        "byte-equal between the narrow and the wide engine")
+    held_to_cpu("a", sp, wides=(None, True))
+
+    pe("b_t1", sp, fmt="bam")
+    pe("b_t4", sp, threads=4, fmt="bam")
+    require_same(out, "b_t4", "b_t1", "(b) -t 4 against -t 1", BAM)
+    log("  (b) all pairs: BAM and junction table byte-equal at -t 4 and "
+        "-t 1")
+
+    res["c"] = crash_resume_pe(big, sp, out, device, batch, mis, "b_t1")
+
+    t0 = time.perf_counter()
+    wait_procs(start_pair("spliced", [
+        "-i", sp["prefix"], "-f", sp["fq"][0], "-f2", sp["fq"][1], *mis,
+        "-bo", os.path.join(out, "d_two.bam"), "-j",
+        os.path.join(out, "d_two.tab"), "-silent"], device))
+    res["d_wall_s"] = time.perf_counter() - t0
+    require_same(out, "d_two", "b_t1", "(d) two processes against one", BAM)
+    log(f"  (d) two processes on the card ({res['d_wall_s']:.1f} s with "
+        "start-up): merged BAM and junction table byte-equal to (b)'s -t 1")
+
+    dup = make_dup(ds)
+    dup_idx = load_index(dup["prefix"])
+    dup_sp = {"prefix": dup["prefix"], "fq": sp["fq"]}
+    allsj = ["-all_sj", "-m"]
+    pe("e_plain", dup_sp, idx=dup_idx)
+    pe("e", dup_sp, idx=dup_idx, extra=allsj)
+    pe("e_wide", dup_sp, idx=dup_idx, extra=allsj, wide=True)
+    require_same(out, "e_wide", "e", "(e) -all_sj -m, wide against narrow")
+    held_to_cpu("e", dup_sp, idx=dup_idx, extra=allsj)
+    plain, flags = res["e_plain"]["counts"], res["e"]["counts"]
+    more = {k: flags[k] - plain[k] for k in ("records", "rows")}
+    log(f"  (e) -all_sj -m on 8mbp_dup: narrow and wide byte-equal; "
+        f"{more['records']} more records and {more['rows']} more junction "
+        "rows than without the flags")
+    if min(more.values()) <= 0:
+        raise AssertionError("(e) -all_sj -m changed nothing on 8mbp_dup")
+    res["e_more"] = more
+
+    f_flags = ["-min_intron", str(MIN_INTRON)]
+    pe("f", sp, extra=f_flags)
+    if same_bytes(os.path.join(out, "f.sam"), os.path.join(out, "a.sam")):
+        raise AssertionError(f"(f) -min_intron {MIN_INTRON} changed nothing")
+    held_to_cpu("f", sp, extra=f_flags)
+    held_to_cpu("f_max_dup", sp, extra=["-max_dup", "10000"])
+    log(f"  (f) -min_intron {MIN_INTRON}: {res['f']['counts']['spliced']} "
+        f"spliced records against (a)'s {res['a']['counts']['spliced']}; "
+        "-max_dup 10000 held to the CPU path")
     return res
 
 
@@ -3378,6 +3708,7 @@ def main() -> int:
 
     gen50 = start_dataset("50mbp_se")
     genpe = start_dataset("8mbp_pe_bam")
+    gensp = start_dataset(SPLICED_PAIRS)
     long_proc = start_long_plain()
     try:
         phase("build", do_build)
@@ -3395,6 +3726,11 @@ def main() -> int:
             if "dataset_pe" in state:
                 phase("outputs", lambda: phase_outputs(state["dataset_pe"],
                                                        "cuda", N_PARITY))
+            phase("dataset_sp", lambda: finish_dataset(gensp,
+                                                       SPLICED_PAIRS))
+            if "dataset_sp" in state:
+                phase("spliced", lambda: phase_spliced(
+                    big, ds, state["dataset_sp"], "cuda", N_PARITY))
             if {"scale", "outputs"} <= set(state):
                 phase("stream", lambda: phase_stream(
                     big, ds, state["dataset_pe"], "cuda", N_PARITY))
@@ -3435,11 +3771,12 @@ def main() -> int:
                      "50 Mbp": (big50, ds50["fq"][0])},
                     state["diagnosis"]["shapes"], "cuda"))
     finally:
-        for proc in (gen50, genpe, long_proc):
+        for proc in (gen50, genpe, gensp, long_proc):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    if failed or not {"scale", "scale50", "outputs", "stream", "cache",
+    if failed or not {"scale", "scale50", "outputs", "spliced", "stream",
+                      "cache",
                       "nw", "mem_walks", "mesh", "dryrun", "dist", "profile",
                       "diagnosis"} <= set(state):
         log(f"chip_smoke: failed phases: {', '.join(failed) or 'none'}")
@@ -3460,16 +3797,18 @@ def main() -> int:
     rows = [row(k, FM_SOURCE, KERNELS[k], launches[k], kern[k],
                 max(kern[k]["max_abs_err"], err50[k])) for k in KERNELS]
     # the narrow kernels also run on the paired BAM path ([outputs]),
-    # and on the 1 M-read stream ([stream] (a); the wide ones in (c))
-    pe = state["outputs"]["t1"]["launches"]
-    st = {**state["stream"]["a_launches"], **state["stream"]["c_launches"]}
-    for r in rows:
-        if r["name"] in pe:
-            r["launches_by_path"] = {"8mbp_se": r["launches"],
-                                     "8mbp_pe_bam": pe[r["name"]]}
-        if r["name"] in st:
-            r.setdefault("launches_by_path", {"8mbp_se": r["launches"]})[
-                "stream"] = st[r["name"]]
+    # all six on the spliced pairs ([spliced] (a)), and on the 1 M-read
+    # stream ([stream] (a); the wide ones in (c))
+    sp = state["spliced"]
+    for path, by in (
+            ("8mbp_pe_bam", state["outputs"]["t1"]["launches"]),
+            ("8mbp_sp", {**sp["a"]["launches"], **sp["a_wide"]["launches"]}),
+            ("stream", {**state["stream"]["a_launches"],
+                        **state["stream"]["c_launches"]})):
+        for r in rows:
+            if r["name"] in by:
+                r.setdefault("launches_by_path", {"8mbp_se": r["launches"]})[
+                    path] = by[r["name"]]
     for name, source, replaces in (
             ("nw", NW_SOURCE, NW_REPLACES),
             ("mem_walks", FM_SOURCE, MEM_WALKS_REPLACES)):
@@ -3505,4 +3844,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    refuse_jax()
     sys.exit(main())

@@ -120,9 +120,17 @@ class DartAligner:
         self.engine = engine if engine is not None else make_engine(idx, cfg)
         self.sj_map: dict = {}
         self.counters = {"total": 0, "unique": 0, "unmapped": 0, "paired": 0}
+        # no second of a run counts under two of the stages
+        # input_parse_s, device_seed_locate_s, native_finalize_s and
+        # output_s, whose sum is at most wall_s (the run's own wall).
+        # device_wait_s is the wait for a chunk's device work with the
+        # next chunk's parse and submit inside it (dart_tpu's key);
+        # device_only_wait_s is the same wait without them, and is the
+        # share of device_seed_locate_s spent waiting
         self.stats = {"device_seed_locate_s": 0.0, "device_wait_s": 0.0,
+                      "device_only_wait_s": 0.0,
                       "native_finalize_s": 0.0, "input_parse_s": 0.0,
-                      "output_s": 0.0, "chunks": 0}
+                      "output_s": 0.0, "chunks": 0, "wall_s": 0.0}
         self.native = None
         # -d uses the introspectable single-threaded Python pipeline
         # (the reference forces one thread under -d, Mapping.cpp:757)
@@ -279,11 +287,22 @@ class DartAligner:
                       emit, on_wait=None) -> None:
         from .pipeline.seeding import finish_chunk
 
+        hook = {"s": 0.0}
+
+        def timed_hook():
+            t = time.time()
+            on_wait()
+            hook["s"] += time.time() - t
+
         t0 = time.time()
         occ_off, occ_rpos, occ_len, occ_gpos = finish_chunk(
-            self.engine, job, on_wait=on_wait)
-        self.stats["device_wait_s"] += time.time() - t0
-        self.stats["device_seed_locate_s"] += time.time() - t0
+            self.engine, job, on_wait=timed_hook if on_wait else None)
+        window = time.time() - t0
+        # the hook parses and submits the next chunk, which its own
+        # timers count under input_parse_s and device_seed_locate_s
+        self.stats["device_wait_s"] += window
+        self.stats["device_only_wait_s"] += window - hook["s"]
+        self.stats["device_seed_locate_s"] += window - hook["s"]
         t0 = time.time()
         sam = self.native.process_chunk(
             reads, pair_end and len(reads) % 2 == 0, fastq,
@@ -550,14 +569,16 @@ class DartAligner:
             os.remove(self._ckpt_path())
         if not cfg.silent:
             print("", file=sys.stderr)
+        wall = self.stats["wall_s"] = time.time() - start
         if cfg.stats:
-            wall = time.time() - start
             s = self.stats
             print(f"[stats] wall {wall:.2f}s, {s['chunks']} chunks, "
                   f"{self.counters['total'] / max(wall, 1e-9):.0f} reads/s",
                   file=sys.stderr)
             print(f"[stats] device seed+locate {s['device_seed_locate_s']:.2f}s "
-                  f"(stall {s['device_wait_s']:.2f}s) | native finalize "
+                  f"(stall {s['device_only_wait_s']:.2f}s; "
+                  f"{s['device_wait_s']:.2f}s with the next chunk's "
+                  "prefetch) | native finalize "
                   f"{s['native_finalize_s']:.2f}s | input {s['input_parse_s']:.2f}s "
                   f"| output {s['output_s']:.2f}s", file=sys.stderr)
         self.print_summary(n_sj)

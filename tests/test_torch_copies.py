@@ -30,7 +30,10 @@ COMMENTS_ONLY = [
 ]
 BY_DESIGN = {
     "aligner.py": "the engine is FMIndexTorch on a device; no JAX engine "
-                  "choice, compile cache or jax.profiler",
+                  "choice, compile cache or jax.profiler; the prefetch "
+                  "hook inside a chunk's wait is timed apart, so that its "
+                  "parse and submit count once (device_only_wait_s, "
+                  "wall_s)",
     "cli.py": "--device, the port's usage, torch.distributed flags",
     "native/build.py": "its own library name, libdart_torch_native, built "
                        "into dart_tpu_torch/_build",
