@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``dart_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py            # one card: phases 1-18 below
+    python3 chip_smoke.py            # one card: phases 1-19 below
     python3 chip_smoke.py --cards    # two cards or more: phase_cards only
     python3 chip_smoke.py --big [--gbp 1.1]   # one card: phase_big only
     python3 chip_smoke.py --stream [--files 100]   # one card: a long stream
@@ -183,7 +183,20 @@ the root of a checkout it:
     the output, and ``-max_dup 10000`` held to the CPU path; each run's
     ``[stats]`` line (wall and stage split), the card's name and power
     limit, and its counts of records, spliced records, proper pairs,
-    unmapped mates and junction rows.
+    unmapped mates and junction rows;
+19. ``[long_introns]``, after phase 18 (``phase_long_introns``):
+    ``12mbp_li`` (``crossing.write_spliced_genome`` at 12 Mbp in three
+    chromosomes, genes with introns of 60-8,000, 100,001-450,000 and
+    520,000-900,000 bases, plus chrDup, a copy of chr1's first Mbp;
+    its index built and 50,000 pairs of ``spliced_pair_set`` made in a
+    child process from the start), ``-mis 5``: the default run,
+    ``-max_intron 100000``, ``-max_intron 1000000`` and ``-all_sj -m``,
+    each whole set byte-equal on the narrow and the wide engine and its
+    first 5,000 pairs to the port's CPU path; each flag must change the
+    SAM, and the CIGARs' ``N`` lengths must keep to ``-max_intron``
+    (none past 500,000 bases at the default, some at 1,000,000, none
+    past 100,000 at 100,000), with the planted introns of each band the
+    junction table holds logged.
 
 ``--stream [--files N]`` (``phase_stream_long``) streams ``8mbp_se``'s
 file N times (default 100: 10 M reads, 200 chunks) through
@@ -196,7 +209,9 @@ line and no ``kernels`` line.
 
 ``--big`` (``phase_big``, ``dart_tpu_torch.crossing``) writes the
 synthetic genome of ``tools/run_big_wide_check.py`` (1.1 Gbp, fwd+rc
-text 2.2 G positions, past 2^31) under ``chip_smoke_work/big``, builds
+text 2.2 G positions, past 2^31) with genes planted in it
+(``crossing.write_spliced_genome``: introns up to 900,000 bases) and
+chrDup (chr1's first 4 Mbp) under ``chip_smoke_work/big``, builds
 its index with the port's builder (time and peak RSS logged, free memory
 and disk first), then on the card: the wide engine missing and hitting
 the layout cache; 2,048 locates (K5) either side of 2^31 against the CPU
@@ -206,10 +221,20 @@ table (K6, held whole against its plain version), against the CPU engine
 on 64 of them and against the genome text at every seed; 10,000 pairs
 through ``dart-tpu-torch -bo -t 4`` against ``--device cpu``; and
 ``entry.giant_proof`` at index=2 on the table repacked from ``.wtab``
-(the ``Sharded`` K4/K5); it also times K4-K6 there at phase 2's shapes
-and one dependent load in a buffer of the table's size (``big_times``).
-Its index build peaks at ~37 GiB of host memory; it writes ~13 GB of
-disk. It ends with the ``ok`` line and no ``kernels`` line.
+(the ``Sharded`` K4/K5); it also times K4-K6 there at phase 2's shapes,
+one dependent load in buffers from 20 MiB doubling to the table's size,
+K5 on rows on the sampling grid against random rows and K4 on reads of
+unique sequence against reads of chrDup's span, whose seeds the scan
+never locates (``big_times``). Then BASELINE config 5's shape on the
+same index (``phase_config5``): 100,000 spliced pairs (``big_sp``)
+through ``-bo -all_sj -m -mis 5`` on the wide engine from a layout-cache
+hit, (a) whole at ``-t 4`` with its first 2,000 pairs byte-equal to the
+CPU path and a reverse-strand spliced record past 2^31 required, (b) as
+10 ``-f``/``-f2`` pairs (2 M reads) through ``stream.run_stream`` with
+``--checkpoint``, held to (a) and flat on the card, (c) crashed and
+resumed twice, (d) two processes, (e) ``-max_intron 100000`` and
+``1000000``. Its index build peaks at ~37 GiB of host memory; it writes
+~14 GB of disk. It ends with the ``ok`` line and no ``kernels`` line.
 
 The data sets are generated in ``bench.py``'s steps with the port's own
 index builder; nothing of JAX or of the JAX package ``dart_tpu`` is
@@ -228,7 +253,8 @@ path (phase 4 for K1-K6, phases 7 and 8 for the gap DP and the MEM
 walk, phase 9's ``data=2,index=2`` runs for the ``*_sharded`` kernels
 but the MEM walk's, which is the dry run's; ``launches_by_path`` adds the
 paired BAM path of phase 15, the spliced pairs of phase 18 (its (a)
-runs, narrow and wide) and the stream of phase 17), its largest
+runs, narrow and wide), the long introns of phase 19 (its default runs,
+narrow and wide) and the stream of phase 17), its largest
 difference
 from the plain version, and both times (at the 8 Mbp index for the FM
 kernels, at index=2 for the sharded ones), its bound (the bytes it
@@ -332,6 +358,8 @@ def make_dataset(name: str = "8mbp_se"):
 
     if name == SPLICED_PAIRS:
         return make_spliced_pairs()
+    if name == LONG_INTRONS:
+        return make_long_introns()
     if HERE not in sys.path:
         sys.path.insert(0, HERE)
     import bench  # its CONFIGS and seeds; importing it runs nothing
@@ -500,8 +528,53 @@ def make_spliced_pairs() -> dict:
     return {"fq": fqs, "prefix": os.path.join(se, "idx"), "dir": d}
 
 
-def read_genome(fa: str) -> dict:
-    """A FASTA file's sequences by name (bench.py's ``_read_genome``)."""
+LONG_INTRONS = "12mbp_li"  # crossing.write_spliced_genome at 12 Mbp
+LI_GBP = 0.012  # three chromosomes of 4 Mbp, genes at GENES_PER_MBP
+LI_DUP_BP = 1_000_000  # chr1's first Mbp again, as chrDup
+N_LI_PAIRS = 50_000
+
+
+def make_long_introns() -> dict:
+    """``12mbp_li``: ``crossing.write_spliced_genome`` at LI_GBP in three
+    chromosomes (genes with introns of 60-8,000, 100,001-450,000 and
+    520,000-900,000 bases, seed 42) plus chrDup (chr1's first LI_DUP_BP
+    bases), indexed under WORK by the port's builder, and N_LI_PAIRS
+    pairs of 100 bases from ``spliced_pair_set`` (0.5% mismatches, seed
+    bench.SEED + 3). Files that exist are kept. Returns a data set dict
+    as ``make_dataset`` does, with the genes under "genes"."""
+    import random
+
+    if HERE not in sys.path:
+        sys.path.insert(0, HERE)
+    import bench
+
+    from dart_tpu_torch import crossing
+    from dart_tpu_torch.index import build_index
+
+    d = os.path.join(WORK, LONG_INTRONS)
+    fa, genes_txt = os.path.join(d, "genome.fa"), os.path.join(d, "genes.txt")
+    prefix = os.path.join(d, "idx")
+    fqs = (os.path.join(d, f"pairs_{N_LI_PAIRS}_1.fq"),
+           os.path.join(d, f"pairs_{N_LI_PAIRS}_2.fq"))
+    os.makedirs(d, exist_ok=True)
+    if not os.path.exists(fa):
+        crossing.write_spliced_genome(fa, genes_txt, LI_GBP, n_chrom=3,
+                                      dup_bp=LI_DUP_BP)
+    genes = read_genes(genes_txt)
+    if not os.path.exists(fqs[1]):
+        write_pairs(fqs, spliced_pair_set(
+            random.Random(bench.SEED + 3), read_genome(fa, skip="chrDup"),
+            genes, N_LI_PAIRS, bench.READ_LEN))
+    if not os.path.exists(prefix + ".bwt"):
+        build_index(fa, prefix)
+    return {"fq": fqs, "prefix": prefix, "dir": d, "genes": genes}
+
+
+def read_genome(fa: str, skip: str | None = None) -> dict:
+    """A FASTA file's sequences by name (bench.py's ``_read_genome``),
+    without the sequence named ``skip`` (reads simulated from the rest
+    map twice where chrDup copies them, as users' reads from a
+    duplicated region do)."""
     genome, name, parts = {}, None, []
     with open(fa) as f:
         for line in f:
@@ -512,6 +585,7 @@ def read_genome(fa: str) -> dict:
             else:
                 parts.append(line.strip())
     genome[name] = "".join(parts)
+    genome.pop(skip, None)
     return genome
 
 
@@ -1347,9 +1421,11 @@ def crash_resume_pe(idx, ds, out: str, device: str, batch: int, extra,
     flags added), and the same run crashed in its third chunk, then
     resumed: BAM and junction table byte-equal to the uninterrupted run,
     records equal to out/<ref>.bam's. Returns both runs."""
+    from dart_tpu_torch import stream
+
     ckpt = ["--checkpoint", "--batch", str(batch), *extra]
     res = {"whole": pe_run(idx, ds, out, "whole", device, 1, extra=ckpt)}
-    crash, _ = crash_hook(sys.maxsize, 0, 3)  # one file: its third chunk
+    crash, _ = stream.crash_hook(sys.maxsize, 0, 3)  # one file: chunk 3
     try:
         pe_run(idx, ds, out, "resumed", device, 1, extra=ckpt,
                engine_hook=crash)
@@ -1414,48 +1490,6 @@ def phase_outputs(ds, device: str, n_parity: int, batch: int = 8192) -> dict:
 MIN_INTRON = 2000  # [spliced] (f): drops the planted introns below it
 
 
-def aln_counts(path: str, tab: str) -> dict:
-    """A SAM or BAM file's records, spliced records (an N in the CIGAR),
-    records flagged as a proper pair, unmapped records, and the junction
-    table's rows."""
-    import gzip
-    import struct
-
-    n = {"records": 0, "spliced": 0, "proper": 0, "unmapped": 0}
-
-    def count(flag: int, spliced: bool) -> None:
-        n["records"] += 1
-        n["spliced"] += spliced
-        n["proper"] += flag & 2 != 0
-        n["unmapped"] += flag & 4 != 0
-
-    if path.endswith(".bam"):
-        with gzip.open(path, "rb") as f:
-            data = f.read()
-        l_text = struct.unpack_from("<i", data, 4)[0]
-        off = 8 + l_text
-        n_ref = struct.unpack_from("<i", data, off)[0]
-        off += 4
-        for _ in range(n_ref):
-            off += 8 + struct.unpack_from("<i", data, off)[0]
-        while off < len(data):
-            size, = struct.unpack_from("<i", data, off)
-            l_name = data[off + 12]
-            n_cigar, flag = struct.unpack_from("<HH", data, off + 16)
-            cig = struct.unpack_from(f"<{n_cigar}I", data, off + 36 + l_name)
-            count(flag, any(c & 15 == 3 for c in cig))
-            off += 4 + size
-    else:
-        with open(path, "rb") as f:
-            for line in f:
-                if not line.startswith(b"@"):
-                    fields = line.split(b"\t", 6)
-                    count(int(fields[1]), b"N" in fields[5])
-    with open(tab, "rb") as f:
-        n["rows"] = sum(1 for _ in f)
-    return n
-
-
 def phase_spliced(big, ds, sp, device: str, n_parity: int,
                   batch: int = 8192) -> dict:
     """[spliced], after [outputs] and before [stream]: 8mbp_sp's pairs
@@ -1485,6 +1519,7 @@ def phase_spliced(big, ds, sp, device: str, n_parity: int,
     must launch in every narrow run of a whole set on the card, K4-K6 in
     the wide ones. Returns each run's walls, [stats] lines, launches and
     counts."""
+    from dart_tpu_torch.crossing import aln_counts
     from dart_tpu_torch.index import load_index
 
     out = os.path.join(WORK, "spliced")
@@ -1581,6 +1616,87 @@ def phase_spliced(big, ds, sp, device: str, n_parity: int,
     return res
 
 
+LI_RUNS = (("default", ()), ("mi100k", ("-max_intron", "100000")),
+           ("mi1m", ("-max_intron", "1000000")), ("allsj", ("-all_sj", "-m")))
+LI_MAX_INTRON = {"default": 0, "mi100k": 100_000, "mi1m": 1_000_000}
+LI_MIN_FOUND = (100, 20)  # planted introns of the last two bands found
+
+
+def phase_long_introns(li, device: str, n_parity: int) -> dict:
+    """[long_introns], after [spliced]: 12mbp_li's pairs
+    (``make_long_introns``: genes with introns up to 900,000 bases, and
+    chrDup) through the main path, -mis 5, in four runs: the default,
+    -max_intron 100000, -max_intron 1000000 and -all_sj -m. Each run's
+    whole set is byte-equal (SAM, junction table) on the narrow engine
+    (K = 11 table) and the wide engine forced, and its first n_parity
+    pairs on the card to the port's CPU path. Each flag's SAM must
+    differ from the default's; every run logs its counts (records,
+    spliced, proper, unmapped, junction rows, CIGARs with an N in each
+    band of ``crossing.N_BANDS``) and the planted introns of each band
+    of ``crossing.INTRON_BANDS`` its junction table holds; the N bands
+    must keep to -max_intron (``crossing.check_bands``), and at
+    1,000,000 the junction table must hold LI_MIN_FOUND planted introns
+    of the two long bands at least. K1-K3 must launch in every narrow
+    whole-set run on the card, K4-K6 in every wide one. Returns each
+    run's walls, [stats] lines, launches and counts."""
+    from dart_tpu_torch import crossing
+    from dart_tpu_torch.index import load_index
+
+    out = os.path.join(WORK, "long_introns")
+    os.makedirs(out, exist_ok=True)
+    idx = load_index(li["prefix"])
+    heads = (head_fastq(li["fq"][0], n_parity, out, "head_1.fq"),
+             head_fastq(li["fq"][1], n_parity, out, "head_2.fq"))
+    res = {}
+
+    def pe(tag, flags, fqs=None, wide=None, on=device):
+        r = res[tag] = pe_run(idx, li, out, tag, on, 1, fqs=fqs,
+                              extra=["-mis", "5", *flags], fmt="sam",
+                              wide=wide)
+        path = os.path.join(out, f"{tag}.tab")
+        r["counts"] = crossing.aln_counts(os.path.join(out, f"{tag}.sam"),
+                                          path)
+        r["found"] = crossing.planted_found(path, li["genes"])
+        log(f"    {tag}: {r['counts']}; planted introns found by band "
+            f"{r['found']}")
+        if on == "cuda" and fqs is None and not all(r["launches"].values()):
+            raise AssertionError(f"{tag}: a kernel of the path never "
+                                 f"launched: {r['launches']}")
+        if on == "cuda" and bool(wide) != ("seed_scan_wide" in r["launches"]):
+            raise AssertionError(f"{tag}: not the engine asked for: "
+                                 f"{r['launches']}")
+        return r
+
+    for tag, flags in LI_RUNS:
+        pe(tag, flags)
+        pe(f"{tag}_wide", flags, wide=True)
+        require_same(out, f"{tag}_wide", tag, f"({tag}) wide against narrow")
+        pe(f"{tag}_head", flags, fqs=heads)
+        pe(f"{tag}_head_cpu", flags, fqs=heads, on="cpu")
+        require_same(out, f"{tag}_head", f"{tag}_head_cpu",
+                     f"({tag}) first {n_parity} pairs, the card against the "
+                     "CPU path")
+        log(f"  ({tag}) all {res[tag]['reads'] // 2} pairs: SAM and junction "
+            f"table byte-equal between the narrow and the wide engine; first "
+            f"{n_parity} pairs byte-equal to the port's CPU path")
+        if tag != "default" and same_bytes(os.path.join(out, f"{tag}.sam"),
+                                           os.path.join(out, "default.sam")):
+            raise AssertionError(f"({tag}) {' '.join(flags)} changed nothing")
+    res["bands"] = crossing.check_bands(
+        {mi: res[tag]["counts"] for tag, mi in LI_MAX_INTRON.items()})
+    found = res["mi1m"]["found"]
+    if found[1] < LI_MIN_FOUND[0] or found[2] < LI_MIN_FOUND[1]:
+        raise AssertionError(f"at -max_intron 1000000 the junction table "
+                             f"holds {found[1:]} planted introns of the long "
+                             f"bands, fewer than {LI_MIN_FOUND}")
+    log(f"  N bands by run {res['bands']}: none past 500,000 at the default, "
+        f"{res['bands'][1_000_000]['gt500k']} CIGARs past it at 1,000,000, "
+        f"none past 100,000 at 100,000; planted introns of the bands found: "
+        + ", ".join(f"{tag} {res[tag]['found']}" for tag, _ in LI_RUNS)
+        + f"; each flag changed the SAM ({CARD})")
+    return res
+
+
 N_STREAM_FILES = 10  # 8mbp_se's 100,000 reads as 10 -f files: 1 M reads
 N_WIDE_FILES = 3  # the same through the wide engine
 STREAM_SLACK = 64 << 20  # bytes the card's used memory may move
@@ -1596,18 +1712,16 @@ def stream_args(ds, out: str, tag: str, fmt: str = "sam", extra=()):
              "-silent", "--stats", "--checkpoint", *extra], outs)
 
 
-def run_stream(idx, args, n_files: int, device: str, engine=None,
-               hook=None, quiet: bool = False) -> dict:
+def run_stream(idx, args, n_files: int, device: str, engine=None) -> dict:
     """``dart_tpu_torch.stream.run_stream`` of ``args`` over n_files files
-    on ``engine`` (made inside it when None), its chunk lines logged
-    unless ``quiet``; the summary line logged and returned, with the
-    per-chunk records under "log"."""
+    on ``engine`` (made inside it when None), its chunk lines logged; the
+    summary line logged and returned, with the per-chunk records under
+    "log"."""
     from dart_tpu_torch import stream
     from dart_tpu_torch.cli import parse_args
 
-    sink = io.StringIO() if quiet else sys.stdout
     res = stream.run_stream(idx, parse_args(args), n_files, device,
-                            engine=engine, log=sink, on_aligner=hook)
+                            engine=engine, log=sys.stdout)
     log("  " + json.dumps({k: v for k, v in res.items()
                            if k not in ("log", "engine")}))
     return res
@@ -1650,69 +1764,24 @@ def hold_stream(res, what: str, kernels) -> None:
         f"chunks; host RSS {res['rss_mb_per_file']:+.2f} MB a file ({CARD})")
 
 
-def crash_hook(per_file: int, file_idx: int, chunk: int, lag: int = 0):
-    """A hook that makes the streaming aligner's native pipeline raise in
-    chunk ``chunk`` (from 1) of file ``file_idx`` (from 0), as a process
-    that dies there, or, with ``lag``, in the first chunk from there on
-    that follows ``lag`` or more chunks finished since the last
-    checkpoint save, so that the resume re-does them. Records the
-    crashed chunk and the chunks done at the last save (from 1)."""
-    seen = {"calls": 0, "saved": 0, "since": 0, "files": {}}
-
-    def hook(aligner):
-        proc, save = aligner.native.process_chunk, aligner._ckpt_save
-
-        def saving(*a, **kw):
-            seen["saved"], seen["since"] = seen["calls"], 0
-            return save(*a, **kw)
-
-        def flaky(*a, **kw):
-            f = aligner.counters["total"] // per_file
-            seen["files"][f] = seen["files"].get(f, 0) + 1
-            seen["calls"] += 1
-            if ((f, seen["files"][f]) >= (file_idx, chunk)
-                    and seen["since"] >= lag):
-                seen["crashed"], seen["file"] = seen["calls"], f
-                raise RuntimeError("injected crash")
-            out = proc(*a, **kw)
-            seen["since"] += 1
-            return out
-
-        aligner._ckpt_save = saving
-        aligner.native.process_chunk = flaky
-
-    return hook, seen
-
-
-def crash_and_resume(idx, args, outs, n_files: int, device: str, engine,
+def crash_and_resume(idx, args, n_files: int, device: str, engine,
                      per_file: int, lag: int) -> dict:
     """The stream of ``args`` crashed in the second chunk of file 4 (with
-    ``lag``: as ``crash_hook`` moves it), then run again: it resumes
-    from its checkpoint. Returns the crash point and the resumed run."""
-    hook, seen = crash_hook(per_file, 3, 2, lag)
-    try:
-        run_stream(idx, args, n_files, device, engine, hook, quiet=True)
-        raise AssertionError("the injected crash did not stop the stream")
-    except RuntimeError as e:
-        if str(e) != "injected crash":
-            raise
-    gc.collect()  # the crashed run's writer goes, as with its process
-    out = outs[0]
-    with open(out + ".ckpt") as f:
-        ckpt = json.load(f)
-    redone = seen["crashed"] - 1 - seen["saved"]
-    if redone < lag:
-        raise AssertionError(f"the last save lags the crash by {redone} "
-                             f"chunks, not {lag} or more")
-    res = run_stream(idx, args, n_files, device, engine, quiet=True)
-    if os.path.exists(out + ".ckpt"):
-        raise AssertionError("the resumed stream left its checkpoint")
-    log(f"  crashed in chunk {seen['crashed']} (file {seen['file']}, "
-        f"chunk {seen['files'][seen['file']]}), checkpoint at file "
-        f"{ckpt['file_idx']} chunk {ckpt['chunks']} ({os.path.getsize(out)} "
-        f"bytes on disk, the last save {redone} chunks before the crash); "
-        f"resumed: {res['chunks']} chunks in {res['wall_s']:.3f} s")
-    return {"crashed": seen["crashed"], "redone": redone, "ckpt": ckpt,
+    ``lag``: as ``stream.crash_hook`` moves it), then run again: it
+    resumes from its checkpoint (``stream.crash_and_resume``). Logs and
+    returns the crash point and the resumed run."""
+    from dart_tpu_torch import stream
+    from dart_tpu_torch.cli import parse_args
+
+    r = stream.crash_and_resume(idx, parse_args(args), n_files, device,
+                                engine, per_file, lag)
+    res, ckpt = r["resumed"], r["ckpt"]
+    log(f"  crashed in chunk {r['crashed']} (file {r['file']}, chunk "
+        f"{r['file_chunk']}), checkpoint at file {ckpt['file_idx']} chunk "
+        f"{ckpt['chunks']} ({r['bytes_at_crash']} bytes on disk, the last "
+        f"save {r['redone']} chunks before the crash); resumed: "
+        f"{res['chunks']} chunks in {res['wall_s']:.3f} s")
+    return {"crashed": r["crashed"], "redone": r["redone"], "ckpt": ckpt,
             "resumed_chunks": res["chunks"], "wall_s": res["wall_s"]}
 
 
@@ -1826,8 +1895,8 @@ def phase_stream(big, ds, ds_pe, device: str, n_parity: int) -> dict:
     for tag, extra, lag in (("b0", ["--ckpt-interval", "0"], 0),
                             ("b2", ["--ckpt-interval", "2", "--batch",
                                     "16384"], 2)):
-        bargs, bouts = stream_args(ds, out, tag, extra=extra)
-        res[tag] = crash_and_resume(big, bargs, bouts, N_STREAM_FILES, device,
+        bargs, _ = stream_args(ds, out, tag, extra=extra)
+        res[tag] = crash_and_resume(big, bargs, N_STREAM_FILES, device,
                                     engine, per_file, lag)
         require_same(out, tag, "a", f"({tag}) the crashed and resumed stream")
         log(f"  ({tag}) {' '.join(extra)}: SAM and junction table byte-equal "
@@ -3503,25 +3572,54 @@ def sim_pairs(fa: str, n: int, d: str):
 def big_times(eng, idx) -> dict:
     """The wide kernels timed on this table at phase 2's shapes (MAIN_R
     reads from both strands, 2% of bases changed; MAIN_R random rows; one
-    K-mer table), and one dependent load in buffers of 20 MiB, 128 MiB
-    and the table's size."""
+    K-mer table), and where their time goes: one dependent load in
+    buffers of 20 MiB doubling up to the table's size; K5 on random rows
+    against rows on the sampling grid (one SA sample read, no LF step),
+    with the random rows' LF steps (the plain version counts them); K4
+    on reads from unique sequence, whose seeds narrow to one occurrence
+    and are located in the scan, against reads from chr1's duplicated
+    span, whose seeds occur twice, so that no seed is located in the
+    scan, with each set's dependent loads by kind (the plain version
+    counts them)."""
     import numpy as np
     import torch
 
     from dart_tpu_torch import crossing
 
     rng = np.random.default_rng(9)
-    codes = crossing.strand_reads(idx, MAIN_R, 100, rng)
+    dup = next(c for c in idx.chromosomes if c.name == "chrDup")
+    codes = crossing.strand_reads(idx, MAIN_R, 100, rng,
+                                  span=(BIG_DUP_BP, dup.forward_location))
     t, words, S = pack(codes, np.full(MAIN_R, 100, np.int32), "cuda")
     rows = torch.from_numpy(rng.integers(1, idx.seq_len, MAIN_R,
                                          dtype=np.int64)).cuda()
+    intv = eng.sa_intv
+    grid = torch.from_numpy(rng.integers(1, idx.seq_len // intv, MAIN_R,
+                                         dtype=np.int64) * intv).cuda()
+    steps = torch.zeros(MAIN_R, dtype=torch.int64, device="cuda")
+    eng.plain_locate(rows, lf_steps=steps)
     table_mb = int(eng.table.nbytes) >> 20
-    return {"seed_scan_wide_ms": time_ms(lambda: eng.seed_scan(t, words, S),
-                                         10),
-            "locate_wide_ms": time_ms(lambda: eng.locate_rows(rows), 10),
-            "lut_build_wide_ms": time_ms(eng.build_lut, 5),
-            "chase_ns": {mb: chase_ns(mb, "cuda")
-                         for mb in (20, 128, table_mb)}}
+    sizes = [mb for mb in (20 << k for k in range(12)) if mb < table_mb]
+    res = {"seed_scan_wide_ms": time_ms(lambda: eng.seed_scan(t, words, S),
+                                        10),
+           "locate_wide_ms": time_ms(lambda: eng.locate_rows(rows), 10),
+           "locate_grid_ms": time_ms(lambda: eng.locate_rows(grid), 10),
+           "lf_steps_mean": float(steps.double().mean()),
+           "lut_build_wide_ms": time_ms(eng.build_lut, 5),
+           "chase_ns": {mb: chase_ns(mb, "cuda")
+                        for mb in (*sizes, table_mb)}}
+    dup_codes = crossing.strand_reads(
+        idx, MAIN_R, 100, rng,
+        span=(dup.forward_location, dup.forward_location + dup.length))
+    td, _, _ = pack(dup_codes, np.full(MAIN_R, 100, np.int32), "cuda")
+    res["seed_scan_dup_ms"] = time_ms(lambda: eng.seed_scan(td, words, S), 10)
+    for tag, x in (("unique", t), ("dup", td)):
+        kinds = torch.zeros((MAIN_R, 5), dtype=torch.int64, device="cuda")
+        eng.plain_seed_scan(x, words, S, loads=kinds)
+        res[f"loads_{tag}"] = dict(zip(
+            ("extend", "locate", "compare", "lut", "walks"),
+            (kinds.sum(0).double() / MAIN_R).tolist()))
+    return res
 
 
 def phase_big(gbp: float, device: str = "cuda") -> dict:
@@ -3543,10 +3641,14 @@ def phase_big(gbp: float, device: str = "cuda") -> dict:
     fa, prefix = os.path.join(d, "genome.fa"), os.path.join(d, "idx")
     res = {}
     stamp(f"{CARD}; {host_room(d)}")
+    genes_txt = os.path.join(d, "genes.txt")
     if not os.path.exists(prefix + ".bwt"):
         t0 = time.perf_counter()
-        crossing.write_genome(fa, gbp)
-        stamp(f"wrote a {gbp:.2f} Gbp genome, 4 chromosomes, seed 42, in "
+        g = res["genome"] = crossing.write_spliced_genome(
+            fa, genes_txt, gbp, dup_bp=BIG_DUP_BP)
+        stamp(f"wrote a {gbp:.2f} Gbp genome, 4 chromosomes, seed 42, "
+              f"{g['genes']} genes planted (introns by band "
+              f"{g['introns']}), chrDup of {BIG_DUP_BP:,} bases, in "
               f"{time.perf_counter() - t0:.1f} s")
         res["build"] = b = build_big_index(fa, prefix)
         stamp(f"index built by the port's builder in {b['seconds']:.0f} s "
@@ -3597,6 +3699,16 @@ def phase_big(gbp: float, device: str = "cuda") -> dict:
               f"{t['lut_build_wide_ms']:.4f} ms (K = {LUT_K}); one "
               "dependent load: " + ", ".join(
                   f"{mb} MiB {ns:.1f} ns" for mb, ns in t["chase_ns"].items()))
+        stamp(f"split ({CARD}): locate_wide on {MAIN_R} rows on the "
+              f"sampling grid (every {eng.sa_intv}; one sample read) "
+              f"{t['locate_grid_ms']:.4f} ms against "
+              f"{t['locate_wide_ms']:.4f} ms on random rows (mean LF steps "
+              f"{t['lf_steps_mean']:.2f}); seed_scan_wide on {MAIN_R} reads "
+              f"of unique sequence (seeds located in the scan) "
+              f"{t['seed_scan_wide_ms']:.4f} ms, dependent loads a read "
+              f"{t['loads_unique']}, against reads of the duplicated span "
+              f"(no seed located in the scan) {t['seed_scan_dup_ms']:.4f} "
+              f"ms, {t['loads_dup']}")
     del eng, oracle
     gc.collect()
     t0 = time.perf_counter()
@@ -3615,8 +3727,149 @@ def phase_big(gbp: float, device: str = "cuda") -> dict:
           f"(cache {r['cache']}; the single engine's {r['single_cache']}), "
           f"{r['table_gib']:.2f} GiB in shards of {r['shard_gib']:.2f} GiB; "
           "seeds and locates equal to the single engine's")
+    res["config5"] = phase_config5(idx, prefix, fa, read_genes(genes_txt), d,
+                                   device)
     stamp("ALL CHECKS PASS")
     return res
+
+
+BIG_DUP_BP = 4_000_000  # chr1's first 4 Mbp again, as chrDup, in --big
+N_BIG_PAIRS = 100_000  # big_sp: spliced_pair_set on the --big genome
+N_BIG_HEAD = 2000  # pairs held to the CPU path
+N_BIG_FILES = 10  # (b): big_sp as 10 -f/-f2 pairs, 1 M pairs
+
+
+def fmt_stats(st: dict) -> str:
+    """An aligner's ``stats`` as one line: the mapping wall and the
+    stage split, stall the device-only wait."""
+    return (f"wall {st['wall_s']:.3f} s, {st['chunks']} chunks: input "
+            f"{st['input_parse_s']:.3f}, device stage "
+            f"{st['device_seed_locate_s']:.3f} (stall "
+            f"{st['device_only_wait_s']:.3f}), finalize "
+            f"{st['native_finalize_s']:.3f}, output {st['output_s']:.3f}")
+
+
+def phase_config5(idx, prefix: str, fa: str, genes: list, d: str,
+                  device: str, split: int = 2**31) -> dict:
+    """``--big``'s BASELINE config-5 runs, after the crossing checks, on the
+    same index (``dart_tpu_torch.crossing``): ``big_sp``, N_BIG_PAIRS
+    pairs of 100 bases from ``spliced_pair_set`` (seed bench.SEED + 4;
+    reads from chr1-chr4, so that those from chr1's first BIG_DUP_BP
+    bases map twice), then, with -bo -all_sj -m -mis 5 and the wide
+    engine from a layout-cache hit:
+
+    (a) the whole set at -t 4, its first N_BIG_HEAD pairs byte-equal to
+        the CPU path; a spliced record on the reverse strand wholly past
+        ``split`` required (counted from the records: ``aln_counts``);
+    (b) the pair as N_BIG_FILES -f/-f2 pairs through ``stream.run_stream``
+        with --checkpoint, held to (a) by ``check_stream``, the card's
+        reserve and own bytes flat from the third chunk, K4 and K5 in
+        every chunk;
+    (c) (b) crashed in file 4's second chunk and resumed, at
+        --ckpt-interval 0 (byte-equal to (b)) and 2 (records equal);
+    (d) two processes on the card, each engine a wide one from the
+        cache hit, merged outputs byte-equal to (a)'s;
+    (e) -max_intron 100000 and 1000000: heads held to the CPU path, the
+        outputs differing from (a)'s, the N bands kept to the flag.
+
+    Every run logs its wall, [stats] split and counts, with the card's
+    name and power limit."""
+    import random
+
+    import bench
+
+    from dart_tpu_torch import crossing
+
+    out = os.path.join(d, "config5")
+    os.makedirs(out, exist_ok=True)
+    res = {}
+    t0 = time.perf_counter()
+    fqs = (os.path.join(d, f"big_sp_{N_BIG_PAIRS}_1.fq"),
+           os.path.join(d, f"big_sp_{N_BIG_PAIRS}_2.fq"))
+    write_pairs(fqs, spliced_pair_set(
+        random.Random(bench.SEED + 4), read_genome(fa, skip="chrDup"), genes,
+        N_BIG_PAIRS, bench.READ_LEN))
+    stamp(f"big_sp: {N_BIG_PAIRS:,} pairs simulated in "
+          f"{time.perf_counter() - t0:.1f} s")
+    gc.collect()
+
+    def show(tag, r):
+        st = r["stats"]
+        stamp(f"  ({tag}) {r['reads']:,} reads, {r['wall_s']:.2f} s with "
+              f"set-up, engine {'wide' if r['wide'] else 'narrow'}, layout "
+              f"cache {r['cache']}; [stats] {fmt_stats(st)}; "
+              f"{r['reads'] / max(st['wall_s'], 1e-9):,.0f} reads/s; "
+              f"launches {r['launches']}; counts {r['counts']} ({CARD})")
+
+    a = res["a"] = crossing.check_config5(idx, prefix, *fqs, out, device,
+                                          N_BIG_HEAD, split=split)
+    show("a", a["whole"])
+    show("a head", a["heads"]["device"])
+    show("a head, CPU", a["heads"]["cpu"])
+    if device == "cuda" and not all(a["whole"]["launches"].values()):
+        raise AssertionError(f"(a) a kernel never launched: "
+                             f"{a['whole']['launches']}")
+    stamp(f"(a) PASS: first {N_BIG_HEAD} pairs byte-equal to the CPU path "
+          f"(BAM, junctions.tab); {a['whole']['counts']['rc_past']} spliced "
+          f"records on the reverse strand wholly past {split:,} (from the "
+          "records)")
+    one = a["whole"]["files"]
+    torch_empty_cache(device)  # the reserve of (a)'s and the heads' engines
+    t0 = time.perf_counter()
+    b = crossing.check_config5_stream(idx, prefix, *fqs, out, device,
+                                      N_BIG_FILES, one)
+    engine = b.pop("engine")
+    res["b"] = {k: v for k, v in b.items() if k != "log"}
+    hold_stream(b, f"(b) {b['stream_reads']:,} reads in {N_BIG_FILES} pairs "
+                "of files", ("seed_scan_wide", "locate_wide"))
+    stamp(f"(b) PASS: {b['chunks']} chunks in {b['wall_s']:.2f} s "
+          f"({b['reads_per_sec']:,.0f} reads/s, steady "
+          f"{b['median_rate_after_file_1']:,.0f}); BAM and junctions.tab pass "
+          f"check_stream against (a); launches {b['launches']}; [stats] "
+          f"{'; '.join(b['stats'])} ({time.perf_counter() - t0:.1f} s with "
+          f"the warm pass; {CARD})")
+    t0 = time.perf_counter()
+    c = res["c"] = crossing.check_config5_resume(
+        idx, prefix, *fqs, out, device, N_BIG_FILES, engine,
+        b["reads_per_file"], b["files"])
+    for tag, r in c.items():
+        stamp(f"({tag}) crashed in chunk {r['crashed']} (file {r['file']}, "
+              f"chunk {r['file_chunk']}), the last save {r['redone']} chunks "
+              f"before, {r['bytes_at_crash']:,} BAM bytes on disk; resumed "
+              f"in {r['resumed']['chunks']} chunks, "
+              f"{r['resumed']['wall_s']:.2f} s")
+    stamp(f"(c) PASS: both resumes equal to (b) (--ckpt-interval 0 byte for "
+          f"byte, 2 in its records), {time.perf_counter() - t0:.1f} s")
+    os.remove(b["files"][0])
+    del engine, b
+    gc.collect()
+    torch_empty_cache(device)
+    dd = res["d"] = crossing.check_two_processes(prefix, *fqs, out, device,
+                                                 one)
+    if dd["engines"] != [("wide", "hit")] * 2:
+        raise AssertionError(f"(d) the processes' engines: {dd['engines']}")
+    stamp(f"(d) PASS: two processes on the card, each a wide engine from the "
+          f"cache hit, merged BAM and junctions.tab byte-equal to (a)'s; "
+          f"{dd['wall_s']:.1f} s with start-up ({CARD})")
+    heads = crossing.head_pairs(*fqs, N_BIG_HEAD, out)
+    e = res["e"] = crossing.check_max_intron(idx, prefix, *fqs, out, device,
+                                             heads, one)
+    for mi, r in e.items():
+        show(f"e -max_intron {mi}", r)
+    res["bands"] = crossing.check_bands(
+        {0: a["whole"]["counts"], **{mi: r["counts"] for mi, r in e.items()}})
+    stamp(f"(e) PASS: -max_intron 100000 and 1000000 change the BAM, heads "
+          f"byte-equal to the CPU path; N bands by run {res['bands']}")
+    for r in (a["whole"], *a["heads"].values(), *e.values()):
+        r.pop("heads", None)
+    return res
+
+
+def torch_empty_cache(device: str) -> None:
+    if device == "cuda":
+        import torch
+
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -3709,6 +3962,7 @@ def main() -> int:
     gen50 = start_dataset("50mbp_se")
     genpe = start_dataset("8mbp_pe_bam")
     gensp = start_dataset(SPLICED_PAIRS)
+    genli = start_dataset(LONG_INTRONS)
     long_proc = start_long_plain()
     try:
         phase("build", do_build)
@@ -3731,6 +3985,10 @@ def main() -> int:
             if "dataset_sp" in state:
                 phase("spliced", lambda: phase_spliced(
                     big, ds, state["dataset_sp"], "cuda", N_PARITY))
+            phase("dataset_li", lambda: finish_dataset(genli, LONG_INTRONS))
+            if "dataset_li" in state:
+                phase("long_introns", lambda: phase_long_introns(
+                    state["dataset_li"], "cuda", N_PARITY))
             if {"scale", "outputs"} <= set(state):
                 phase("stream", lambda: phase_stream(
                     big, ds, state["dataset_pe"], "cuda", N_PARITY))
@@ -3771,12 +4029,12 @@ def main() -> int:
                      "50 Mbp": (big50, ds50["fq"][0])},
                     state["diagnosis"]["shapes"], "cuda"))
     finally:
-        for proc in (gen50, genpe, gensp, long_proc):
+        for proc in (gen50, genpe, gensp, genli, long_proc):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    if failed or not {"scale", "scale50", "outputs", "spliced", "stream",
-                      "cache",
+    if failed or not {"scale", "scale50", "outputs", "spliced",
+                      "long_introns", "stream", "cache",
                       "nw", "mem_walks", "mesh", "dryrun", "dist", "profile",
                       "diagnosis"} <= set(state):
         log(f"chip_smoke: failed phases: {', '.join(failed) or 'none'}")
@@ -3797,12 +4055,15 @@ def main() -> int:
     rows = [row(k, FM_SOURCE, KERNELS[k], launches[k], kern[k],
                 max(kern[k]["max_abs_err"], err50[k])) for k in KERNELS]
     # the narrow kernels also run on the paired BAM path ([outputs]),
-    # all six on the spliced pairs ([spliced] (a)), and on the 1 M-read
+    # all six on the spliced pairs ([spliced] (a)) and the long introns
+    # ([long_introns], the default run), and on the 1 M-read
     # stream ([stream] (a); the wide ones in (c))
-    sp = state["spliced"]
+    sp, li = state["spliced"], state["long_introns"]
     for path, by in (
             ("8mbp_pe_bam", state["outputs"]["t1"]["launches"]),
             ("8mbp_sp", {**sp["a"]["launches"], **sp["a_wide"]["launches"]}),
+            (LONG_INTRONS, {**li["default"]["launches"],
+                            **li["default_wide"]["launches"]}),
             ("stream", {**state["stream"]["a_launches"],
                         **state["stream"]["c_launches"]})):
         for r in rows:

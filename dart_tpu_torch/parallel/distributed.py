@@ -23,6 +23,8 @@ from __future__ import annotations
 import datetime
 import json
 import os
+import socket
+import sys
 
 import torch
 import torch.distributed as dist
@@ -177,6 +179,19 @@ def _allgather_sj(sj_items: list) -> dict:
     return merged
 
 
+def held_port():
+    """A free TCP port of this host, with a socket bound to it that the
+    caller keeps open until the processes it starts on that port are
+    done: the kernel hands a bound port to no other socket, and the
+    socket does not listen, so the process that binds the port with
+    SO_REUSEADDR (torch.distributed's store does) still listens on it.
+    Returns (port, socket)."""
+    s = socket.socket()
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    s.bind(("127.0.0.1", 0))
+    return s.getsockname()[1], s
+
+
 def run_distributed(cfg, coordinator: str, nprocs: int, pid: int,
                     device="cuda") -> int:
     """Entry point of one process of a multi-host run."""
@@ -202,6 +217,11 @@ def _run(cfg, nprocs: int, pid: int, device) -> None:
 
     idx = load_index(cfg.index_prefix)
     aligner = DartAligner(idx, cfg, engine=make_engine(idx, cfg, device))
+    if cfg.stats:
+        eng = aligner.engine
+        kind = "wide" if getattr(eng, "wide", False) else "narrow"
+        print(f"[stats] engine {kind}, layout cache "
+              f"{getattr(eng, 'cache', None)}", file=sys.stderr)
 
     shard_sam = f"{cfg.output_file}.shard{pid:04d}"
     files2 = (cfg.read_files_2 if cfg.read_files_2

@@ -22,7 +22,8 @@ process's own bytes as NVML counts them, which also sees allocations
 made outside PyTorch's caching allocator. ``main`` ends with one JSON
 summary line on stdout. ``check_stream`` holds a stream's outputs
 against the one-file run without loading either whole; ``hold_card``
-holds its memory on the card flat.
+holds its memory on the card flat; ``crash_and_resume`` crashes a
+``--checkpoint`` stream where ``crash_hook`` says and resumes it.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import contextlib
 import copy
 import gzip
 import hashlib
+import io
 import json
 import os
 import struct
@@ -324,6 +326,83 @@ def summarize(records, wall, aligner, cfg, n_files, per_file, dev,
             own_third=third["card"]["own"],
             own_last=records[-1]["card"]["own"])
     return out
+
+
+def crash_hook(per_file: int, file_idx: int, chunk: int, lag: int = 0):
+    """A hook for ``run_stream``'s ``on_aligner`` that makes the streaming
+    aligner's native pipeline raise ``RuntimeError("injected crash")`` in
+    chunk ``chunk`` (from 1) of file ``file_idx`` (from 0; ``per_file``
+    reads a file), as a process that dies there, or, with ``lag``, in
+    the first chunk from there on that follows ``lag`` or more chunks
+    finished since the last checkpoint save, so that the resume re-does
+    them. Returns (hook, record): the record holds the crashed chunk and
+    the chunks done at the last save (from 1)."""
+    seen = {"calls": 0, "saved": 0, "since": 0, "files": {}}
+
+    def hook(aligner):
+        proc, save = aligner.native.process_chunk, aligner._ckpt_save
+
+        def saving(*a, **kw):
+            seen["saved"], seen["since"] = seen["calls"], 0
+            return save(*a, **kw)
+
+        def flaky(*a, **kw):
+            f = aligner.counters["total"] // per_file
+            seen["files"][f] = seen["files"].get(f, 0) + 1
+            seen["calls"] += 1
+            if ((f, seen["files"][f]) >= (file_idx, chunk)
+                    and seen["since"] >= lag):
+                seen["crashed"], seen["file"] = seen["calls"], f
+                raise RuntimeError("injected crash")
+            out = proc(*a, **kw)
+            seen["since"] += 1
+            return out
+
+        aligner._ckpt_save = saving
+        aligner.native.process_chunk = flaky
+
+    return hook, seen
+
+
+def crash_and_resume(idx, cfg, n_files: int, device, engine, per_file: int,
+                     lag: int = 0, file_idx: int = 3, chunk: int = 2) -> dict:
+    """``run_stream`` of ``cfg`` (with ``--checkpoint``) crashed in chunk
+    ``chunk`` of file ``file_idx`` (with ``lag``: as ``crash_hook``
+    moves it), then run again on the same engine: it resumes from its
+    checkpoint. Raises AssertionError when the crash did not stop the
+    stream, left no checkpoint, came fewer than ``lag`` chunks after
+    the last save, or the resumed stream left its checkpoint. Returns
+    the crash point, the checkpoint, the output's bytes on disk after
+    the crash and the resumed run's summary."""
+    import gc
+
+    if not cfg.checkpoint:
+        raise ValueError("a crash is resumed from a --checkpoint stream")
+    hook, seen = crash_hook(per_file, file_idx, chunk, lag)
+    sink = io.StringIO()  # the chunk lines
+    try:
+        run_stream(idx, cfg, n_files, device, engine, sink, hook)
+        raise AssertionError("the injected crash did not stop the stream")
+    except RuntimeError as e:
+        if str(e) != "injected crash":
+            raise
+    gc.collect()  # the crashed run's writer goes, as with its process
+    out = cfg.output_file
+    if not os.path.exists(out + ".ckpt"):
+        raise AssertionError("the crashed stream left no checkpoint")
+    with open(out + ".ckpt") as f:
+        ckpt = json.load(f)
+    cut = os.path.getsize(out)
+    redone = seen["crashed"] - 1 - seen["saved"]
+    if redone < lag:
+        raise AssertionError(f"the last save lags the crash by {redone} "
+                             f"chunks, not {lag} or more")
+    res = run_stream(idx, cfg, n_files, device, engine, sink)
+    if os.path.exists(out + ".ckpt"):
+        raise AssertionError("the resumed stream left its checkpoint")
+    return {"crashed": seen["crashed"], "file": seen["file"],
+            "file_chunk": seen["files"][seen["file"]], "redone": redone,
+            "ckpt": ckpt, "bytes_at_crash": cut, "resumed": res}
 
 
 def check_stream(out, one, n: int, fmt: str = "sam") -> dict:

@@ -8,11 +8,12 @@ a resume from per-process checkpoints after an injected crash. Each
 pair of processes is killed if it outlives its time limit."""
 
 import os
-import socket
 import subprocess
 import sys
 
 import pytest
+
+from dart_tpu_torch.parallel.distributed import held_port
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
@@ -21,19 +22,13 @@ GOLD = os.path.join(HERE, "golden")
 TIMEOUT_S = 300  # one pair of processes; a few seconds each when well
 
 
-def _free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
 def run_pair(args, env_extra=None):
-    """Two ranks of ``dart-tpu-torch ... --device cpu`` on a fresh port;
-    returns their (return codes, stderr). Both are killed when either
-    outlives TIMEOUT_S."""
-    port = _free_port()
+    """Two ranks of ``dart-tpu-torch ... --device cpu`` on a port held
+    for them (``held_port``: bound here until both are done, so that no
+    other socket of the host is handed it meanwhile); returns their
+    (return codes, stderr). Both are killed when either outlives
+    TIMEOUT_S."""
+    port, hold = held_port()
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     env["OMP_NUM_THREADS"] = "1"  # the two ranks share the test's cores
@@ -48,6 +43,7 @@ def run_pair(args, env_extra=None):
         for p in procs:
             errs.append(p.communicate(timeout=TIMEOUT_S)[1].decode())
     finally:
+        hold.close()
         for p in procs:
             if p.poll() is None:
                 p.kill()
