@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``dart_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py            # one card: phases 1-19 below
+    python3 chip_smoke.py            # one card: phases 1-20 below
     python3 chip_smoke.py --cards    # two cards or more: phase_cards only
     python3 chip_smoke.py --big [--gbp 1.1]   # one card: phase_big only
     python3 chip_smoke.py --stream [--files 100]   # one card: a long stream
@@ -196,7 +196,15 @@ the root of a checkout it:
     SAM, and the CIGARs' ``N`` lengths must keep to ``-max_intron``
     (none past 500,000 bases at the default, some at 1,000,000, none
     past 100,000 at 100,000), with the planted introns of each band the
-    junction table holds logged.
+    junction table holds logged;
+20. ``[bench]``, after phase 18 (``phase_bench``): ``python -m
+    dart_tpu_torch.bench --configs 8mbp_se,8mbp_sp --parity-reads 5000``
+    in a child process on the data sets of phases 4 and 18 (the bench's
+    timed passes, stage split, traced pass and parity against the port's
+    CPU path); its exit 0, its last line, each config's parity and
+    junction parity N/N, its best pass's stage split no more than its
+    wall, an idle share in [0, 1] and K1-K3 launched are required; its
+    numbers are logged, with no threshold on reads/s.
 
 ``--stream [--files N]`` (``phase_stream_long``) streams ``8mbp_se``'s
 file N times (default 100: 10 M reads, 200 chunks) through
@@ -236,7 +244,8 @@ resumed twice, (d) two processes, (e) ``-max_intron 100000`` and
 ``1000000``. Its index build peaks at ~37 GiB of host memory; it writes
 ~14 GB of disk. It ends with the ``ok`` line and no ``kernels`` line.
 
-The data sets are generated in ``bench.py``'s steps with the port's own
+The data sets are generated by ``dart_tpu_torch.benchdata`` (the bench's
+own generators, from ``bench.py``'s seeds and specs) with the port's own
 index builder; nothing of JAX or of the JAX package ``dart_tpu`` is
 imported, and an attempt to is refused.
 
@@ -254,7 +263,8 @@ walk, phase 9's ``data=2,index=2`` runs for the ``*_sharded`` kernels
 but the MEM walk's, which is the dry run's; ``launches_by_path`` adds the
 paired BAM path of phase 15, the spliced pairs of phase 18 (its (a)
 runs, narrow and wide), the long introns of phase 19 (its default runs,
-narrow and wide) and the stream of phase 17), its largest
+narrow and wide), the stream of phase 17 and the bench of phase 20 (its
+two configs' engines, warm, timed, head and traced passes)), its largest
 difference
 from the plain version, and both times (at the 8 Mbp index for the FM
 kernels, at index=2 for the sharded ones), its bound (the bytes it
@@ -279,6 +289,12 @@ import subprocess
 import sys
 import time
 import traceback
+
+from dart_tpu_torch.bench import head_fastq, kernel_name, trace_summary
+from dart_tpu_torch.benchdata import (READ_LEN, SEED, make_dataset,
+                                      read_genes, read_genome,
+                                      sim_reads_paired, spliced_pair_set,
+                                      write_fasta, write_pairs)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(HERE, "chip_smoke_work")
@@ -320,13 +336,15 @@ N_DIST_READS = 20000  # reads of 8mbp_se through the two-process run
 SHARDED = ("seed_scan_sharded", "locate_sharded", "lut_build_sharded",
            "seed_scan_wide_sharded", "locate_wide_sharded",
            "lut_build_wide_sharded", "mem_walks_sharded")
+SPLICED_PAIRS = "8mbp_sp"  # spliced_pair_set on 8mbp_se's genome and genes
+LONG_INTRONS = "12mbp_li"  # crossing.write_spliced_genome at 12 Mbp
 
 
 def refuse_jax() -> None:
     """Make any later attempt to import JAX, or the JAX package, fail
     loudly: the port stands alone. The run and its child processes call
-    it; the tests that import this module for its read generators (and
-    import ``dart_tpu`` themselves) do not."""
+    it; the tests that import this module for its helpers (and import
+    ``dart_tpu`` themselves) do not."""
     sys.modules["jax"] = None
     sys.modules["dart_tpu"] = None
 
@@ -335,266 +353,13 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def fixtures():
-    """``tools/make_fixtures.py``, the generators of the repo's test data
-    (genomes, planted genes, reads)."""
-    tools = os.path.join(HERE, "tools")
-    if tools not in sys.path:
-        sys.path.insert(0, tools)
-    import make_fixtures
-
-    return make_fixtures
-
-
-def make_dataset(name: str = "8mbp_se"):
-    """bench.py's genome, reads and index of config ``name`` under WORK,
-    made in the steps of ``bench.ensure_dataset`` (its ``CONFIGS``,
-    ``SEED`` and ``READ_LEN``, ``tools/make_fixtures.py``'s generators)
-    with the port's own index builder; a paired config's reads as
-    ``bench.py`` simulates them (``sim_reads_paired``); ``8mbp_sp``
-    through ``make_spliced_pairs``. Files that exist are kept. Returns
-    {"fq": (reads, None) or (mates 1, mates 2), "prefix", "dir"}."""
-    import random
-
-    if name == SPLICED_PAIRS:
-        return make_spliced_pairs()
-    if name == LONG_INTRONS:
-        return make_long_introns()
-    if HERE not in sys.path:
-        sys.path.insert(0, HERE)
-    import bench  # its CONFIGS and seeds; importing it runs nothing
-
-    from dart_tpu_torch.index import build_index
-
-    mf = fixtures()
-    spec = bench.CONFIGS[name]
-    d = os.path.join(WORK, name)
-    fa = os.path.join(d, "genome.fa")
-    prefix = os.path.join(d, "idx")
-    n = spec["n_reads"]
-    fq = os.path.join(d, f"reads_{n}.fq")
-    fqs = ((os.path.join(d, f"reads_{n}_1.fq"),
-            os.path.join(d, f"reads_{n}_2.fq")) if spec["paired"]
-           else (fq, None))
-    os.makedirs(d, exist_ok=True)
-    if not os.path.exists(fa):
-        genome, genes = bench_genome(spec)
-        with open(os.path.join(d, "genes.txt"), "w") as f:
-            for exs in genes:
-                f.write("chr1\t" + ",".join(f"{a}-{b}" for a, b in exs)
-                        + "\n")
-        mf.write_fasta(fa + ".tmp", sorted(genome.items()))
-        os.replace(fa + ".tmp", fa)
-    if spec["paired"] and not os.path.exists(fqs[1]):
-        rng = random.Random(bench.SEED + 1)
-        r1, r2 = mf.sim_reads_paired(rng, read_genome(fa), n // 2,
-                                     bench.READ_LEN, mismatch_rate=0.005)
-        write_pairs(fqs, (r1, r2))
-    if not spec["paired"] and not os.path.exists(fq):
-        rng = random.Random(bench.SEED + 1)
-        genome = read_genome(fa)
-        genes = [exs for _, exs in read_genes(os.path.join(d, "genes.txt"))]
-        n_spliced = n * 3 // 10
-        reads = mf.sim_reads_genomic(rng, genome, n - n_spliced,
-                                     bench.READ_LEN, 0.005, tag="g")
-        reads += mf.sim_reads_spliced(rng, "chr1", genome["chr1"], genes,
-                                      n_spliced, bench.READ_LEN, 0.005,
-                                      tag="s")
-        rng.shuffle(reads)
-        mf.write_reads_fastq(fq + ".tmp", reads)
-        os.replace(fq + ".tmp", fq)
-    if not os.path.exists(prefix + ".bwt"):
-        build_index(fa, prefix)
-    return {"fq": fqs, "prefix": prefix, "dir": d}
-
-
-def bench_genome(spec: dict):
-    """bench.py's genome of config ``spec`` (its seed, chromosomes and
-    planted genes on chr1): ({name: sequence}, [exons of each gene])."""
-    import random
-
-    import bench
-
-    mf = fixtures()
-    rng = random.Random(bench.SEED)
-    genome = mf.make_genome(rng, spec["genome"], n_runs=4)
-    n_genes = max(50, sum(spec["genome"].values()) // 50000)
-    genome["chr1"], genes = mf.plant_genes(rng, genome["chr1"],
-                                           n_genes=n_genes)
-    return genome, genes
-
-
-def write_pairs(fqs, pairs) -> None:
-    """Mates 1 and 2 as FASTQ files, each written whole or not at all."""
-    mf = fixtures()
-    for path, reads in zip(fqs, pairs):
-        mf.write_reads_fastq(path + ".tmp", reads)
-    for path in fqs:
-        os.replace(path + ".tmp", path)
-
-
-def read_genes(path: str) -> list:
-    """A ``genes.txt`` (``chrom<TAB>start-end,...``, ``plant_genes``'
-    exons, 0-based, end exclusive) as [(chrom, [(start, end), ...])]."""
-    with open(path) as f:
-        return [(chrom, [tuple(map(int, p.split("-")))
-                         for p in exons.split(",")])
-                for chrom, exons in (line.rstrip("\n").split("\t")
-                                     for line in f if line.strip())]
-
-
-def sim_pairs_spliced(rng, genome: dict, genes: list, n: int, rlen: int,
-                      insert=(200, 500), mismatch_rate: float = 0.0,
-                      tag: str = "s"):
-    """n read pairs cut from spliced transcripts, as ``sim_reads_paired``
-    cuts them from the genome: a fragment of a transcript (a gene's exons
-    concatenated; ``genes`` as ``read_genes`` gives them) of a length
-    uniform in ``insert``, capped at the transcript's, from either
-    strand; mate 1 is its first rlen bases and mate 2 the reverse
-    complement of its last rlen, each with ``mismatch_rate``
-    substitutions. Transcripts shorter than the least insert are
-    skipped. Both mates are named ``{tag}{i}_{chrom}:t{pos}_F|R`` (pos:
-    the fragment's offset in the transcript). Returns (mates 1, mates
-    2) as lists of (name, sequence)."""
-    mf = fixtures()
-    transcripts = [(chrom, "".join(genome[chrom][a:b] for a, b in exs))
-                   for chrom, exs in genes]
-    transcripts = [t for t in transcripts if len(t[1]) >= insert[0]]
-    r1, r2 = [], []
-    for i in range(n):
-        chrom, t = transcripts[rng.randrange(len(transcripts))]
-        isz = min(rng.randrange(*insert), len(t))
-        pos = rng.randrange(len(t) - isz + 1)
-        frag = t[pos:pos + isz]
-        strand = rng.random() < 0.5
-        if strand:
-            frag = mf.revcomp(frag)
-        name = f"{tag}{i}_{chrom}:t{pos}{'_R' if strand else '_F'}"
-        r1.append((name, mf.mutate(rng, frag[:rlen], mismatch_rate)))
-        r2.append((name, mf.mutate(rng, mf.revcomp(frag[-rlen:]),
-                                   mismatch_rate)))
-    return r1, r2
-
-
-def spliced_pair_set(rng, genome: dict, genes: list, n: int, rlen: int,
-                     mismatch_rate: float = 0.005):
-    """8mbp_se's read mix as pairs: 70% genomic pairs
-    (``sim_reads_paired``, tag "g") and 30% spliced ones
-    (``sim_pairs_spliced``), shuffled together: (mates 1, mates 2)."""
-    mf = fixtures()
-    n_sp = n * 3 // 10
-    g1, g2 = mf.sim_reads_paired(rng, genome, n - n_sp, rlen,
-                                 mismatch_rate=mismatch_rate, tag="g")
-    s1, s2 = sim_pairs_spliced(rng, genome, genes, n_sp, rlen,
-                               mismatch_rate=mismatch_rate)
-    pairs = list(zip(g1 + s1, g2 + s2))
-    rng.shuffle(pairs)
-    return [a for a, _ in pairs], [b for _, b in pairs]
-
-
-SPLICED_PAIRS = "8mbp_sp"  # spliced_pair_set on 8mbp_se's genome and genes
-N_SP_PAIRS = 50_000
-
-
-def make_spliced_pairs() -> dict:
-    """``8mbp_sp``: N_SP_PAIRS pairs of 100 bases (``spliced_pair_set``,
-    0.5% mismatches, seed bench.SEED + 2) on 8mbp_se's genome and genes,
-    read from its files when they are there, else made again from
-    bench.py's seed in memory (so that a child process can start before
-    8mbp_se's files are written). It reuses 8mbp_se's index: nothing new
-    is built. Returns a data set dict as ``make_dataset`` does."""
-    import random
-
-    if HERE not in sys.path:
-        sys.path.insert(0, HERE)
-    import bench
-
-    se = os.path.join(WORK, "8mbp_se")
-    d = os.path.join(WORK, SPLICED_PAIRS)
-    fqs = (os.path.join(d, f"pairs_{N_SP_PAIRS}_1.fq"),
-           os.path.join(d, f"pairs_{N_SP_PAIRS}_2.fq"))
-    if not os.path.exists(fqs[1]):
-        os.makedirs(d, exist_ok=True)
-        fa = os.path.join(se, "genome.fa")
-        if os.path.exists(fa):  # genes.txt is written before it
-            genome = read_genome(fa)
-            genes = read_genes(os.path.join(se, "genes.txt"))
-        else:
-            genome, exons = bench_genome(bench.CONFIGS["8mbp_se"])
-            genes = [("chr1", exs) for exs in exons]
-        write_pairs(fqs, spliced_pair_set(
-            random.Random(bench.SEED + 2), genome, genes, N_SP_PAIRS,
-            bench.READ_LEN))
-    return {"fq": fqs, "prefix": os.path.join(se, "idx"), "dir": d}
-
-
-LONG_INTRONS = "12mbp_li"  # crossing.write_spliced_genome at 12 Mbp
-LI_GBP = 0.012  # three chromosomes of 4 Mbp, genes at GENES_PER_MBP
-LI_DUP_BP = 1_000_000  # chr1's first Mbp again, as chrDup
-N_LI_PAIRS = 50_000
-
-
-def make_long_introns() -> dict:
-    """``12mbp_li``: ``crossing.write_spliced_genome`` at LI_GBP in three
-    chromosomes (genes with introns of 60-8,000, 100,001-450,000 and
-    520,000-900,000 bases, seed 42) plus chrDup (chr1's first LI_DUP_BP
-    bases), indexed under WORK by the port's builder, and N_LI_PAIRS
-    pairs of 100 bases from ``spliced_pair_set`` (0.5% mismatches, seed
-    bench.SEED + 3). Files that exist are kept. Returns a data set dict
-    as ``make_dataset`` does, with the genes under "genes"."""
-    import random
-
-    if HERE not in sys.path:
-        sys.path.insert(0, HERE)
-    import bench
-
-    from dart_tpu_torch import crossing
-    from dart_tpu_torch.index import build_index
-
-    d = os.path.join(WORK, LONG_INTRONS)
-    fa, genes_txt = os.path.join(d, "genome.fa"), os.path.join(d, "genes.txt")
-    prefix = os.path.join(d, "idx")
-    fqs = (os.path.join(d, f"pairs_{N_LI_PAIRS}_1.fq"),
-           os.path.join(d, f"pairs_{N_LI_PAIRS}_2.fq"))
-    os.makedirs(d, exist_ok=True)
-    if not os.path.exists(fa):
-        crossing.write_spliced_genome(fa, genes_txt, LI_GBP, n_chrom=3,
-                                      dup_bp=LI_DUP_BP)
-    genes = read_genes(genes_txt)
-    if not os.path.exists(fqs[1]):
-        write_pairs(fqs, spliced_pair_set(
-            random.Random(bench.SEED + 3), read_genome(fa, skip="chrDup"),
-            genes, N_LI_PAIRS, bench.READ_LEN))
-    if not os.path.exists(prefix + ".bwt"):
-        build_index(fa, prefix)
-    return {"fq": fqs, "prefix": prefix, "dir": d, "genes": genes}
-
-
-def read_genome(fa: str, skip: str | None = None) -> dict:
-    """A FASTA file's sequences by name (bench.py's ``_read_genome``),
-    without the sequence named ``skip`` (reads simulated from the rest
-    map twice where chrDup copies them, as users' reads from a
-    duplicated region do)."""
-    genome, name, parts = {}, None, []
-    with open(fa) as f:
-        for line in f:
-            if line.startswith(">"):
-                if name:
-                    genome[name] = "".join(parts)
-                name, parts = line[1:].split()[0].strip(), []
-            else:
-                parts.append(line.strip())
-    genome[name] = "".join(parts)
-    genome.pop(skip, None)
-    return genome
-
-
 def start_dataset(name: str) -> subprocess.Popen:
-    """make_dataset(name) in a child process, to overlap with the card."""
+    """make_dataset(name, WORK) in a child process, to overlap with the
+    card."""
     return subprocess.Popen(
         [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
          " import chip_smoke; chip_smoke.refuse_jax();"
-         " chip_smoke.make_dataset(sys.argv[2])",
+         " chip_smoke.make_dataset(sys.argv[2], chip_smoke.WORK)",
          HERE, name], cwd=HERE, stdout=subprocess.DEVNULL,
         stderr=subprocess.PIPE, text=True)
 
@@ -604,7 +369,7 @@ def finish_dataset(proc: subprocess.Popen, name: str):
     if proc.returncode != 0:
         raise RuntimeError(f"generating {name} failed ({proc.returncode}):\n"
                            f"{err[-3000:]}")
-    return make_dataset(name)  # all files exist now: returns their paths
+    return make_dataset(name, WORK)  # all files exist: their paths
 
 
 def read_fastq(path: str, n: int):
@@ -1300,18 +1065,6 @@ def require_same(out: str, a: str, b: str, what: str,
             raise AssertionError(f"{what}: {a}.{ext} differs from {b}.{ext}")
 
 
-def head_fastq(fq: str, n: int, out: str, name: str = "") -> str:
-    """The first n records of a FASTQ file, as a file under out
-    (``name``, default head<n>.fq)."""
-    head = os.path.join(out, name or f"head{n}.fq")
-    with open(fq, "rb") as f, open(head, "wb") as g:
-        for i, line in enumerate(f):
-            if i == 4 * n:
-                break
-            g.write(line)
-    return head
-
-
 def phase_scale(big, ds, device: str, n_parity: int) -> dict:
     """The 8mbp_se set through the narrow and the wide engine; then its
     first n_parity reads through both against the port's CPU path (the
@@ -1616,6 +1369,69 @@ def phase_spliced(big, ds, sp, device: str, n_parity: int,
     return res
 
 
+BENCH_CONFIGS = ("8mbp_se", "8mbp_sp")  # [bench]: the headline, BASELINE's
+STAGES = ("input_parse_s", "device_seed_locate_s", "native_finalize_s",
+          "output_s")  # the stage split, each second counted once
+
+
+def phase_bench(device: str, n_parity: int) -> dict:
+    """[bench], after [spliced]: ``python -m dart_tpu_torch.bench
+    --configs 8mbp_se,8mbp_sp --parity-reads n_parity`` in a child
+    process on the data sets made under WORK. Requires its exit 0, a last
+    line that parses, and for each config: parity and junction parity N/N
+    against the port's CPU path, the best pass's stage split no more than
+    its ``wall_s``, an idle share in [0, 1], and K1-K3 launched. Puts no
+    threshold on reads/s. Logs each config's numbers with the card's
+    name and power limit; returns the line and the launches summed over
+    the configs."""
+    from dart_tpu_torch.bench import short
+
+    env = dict(os.environ, DART_TPU_BENCH_DIR=WORK,
+               PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-m", "dart_tpu_torch.bench", "--configs",
+         ",".join(BENCH_CONFIGS), "--parity-reads", str(n_parity),
+         "--device", device], cwd=HERE, env=env, capture_output=True,
+        text=True, timeout=900)
+    for line in proc.stderr.splitlines():
+        if line.startswith("bench"):
+            log(f"    {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"the bench exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    launches: dict = {}
+    for c in BENCH_CONFIGS:
+        r = out["configs"][c]
+        if "reads_per_sec" not in r:
+            raise AssertionError(f"{c}: no measurement: {r}")
+        if (r["parity_oracle"] != "port_cpu" or short(r["parity"])
+                or short(r["sj_parity"])):
+            raise AssertionError(f"{c}: parity {r['parity']}; junctions "
+                                 f"{r['sj_parity']} ({r['parity_oracle']})")
+        st = r["stage_split"]
+        if sum(st[k] for k in STAGES) > st["wall_s"] + 1e-6:
+            raise AssertionError(f"{c}: the stage split sums past wall_s: "
+                                 f"{st}")
+        if not 0 <= r["idle_share"] <= 1:
+            raise AssertionError(f"{c}: idle share {r['idle_share']}")
+        for k in ("seed_scan", "locate", "lut_build"):
+            if not r["launches"].get(k):
+                raise AssertionError(f"{c}: no {k} launch: {r['launches']}")
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        log(f"  {c} ({CARD}): best {r['reads_per_sec']:.0f} reads/s, median "
+            f"{r['median_reads_per_sec']:.0f}, {r['passes']} passes "
+            f"{[round(t, 4) for t in r['ours_passes_s']]}, spread "
+            f"{r['spread']:.3f}; best pass {fmt_stats(st)}; set-up "
+            f"{r['setup_s']:.2f} s; parity {r['parity']}, junctions "
+            f"{r['sj_parity']} ({r['parity_reads']} reads, port_cpu); idle "
+            f"{100 * r['idle_share']:.2f}% of {r['window_s']:.3f} s; kernels "
+            + "; ".join(f"{k} {v:.3f} ms" for k, v in sorted(
+                r["kernels_ms"].items(), key=lambda kv: -kv[1])[:3]))
+    return {"line": out, "launches": launches}
+
+
 LI_RUNS = (("default", ()), ("mi100k", ("-max_intron", "100000")),
            ("mi1m", ("-max_intron", "1000000")), ("allsj", ("-all_sj", "-m")))
 LI_MAX_INTRON = {"default": 0, "mi100k": 100_000, "mi1m": 1_000_000}
@@ -1796,8 +1612,6 @@ def make_dup(ds) -> dict:
     than one alignment and -all_sj records junctions that phase 4's
     run, which keeps only unique alignments' junctions, leaves out.
     Returns a data set dict with 8mbp_se's reads."""
-    import make_fixtures as mf  # on sys.path through bench (make_dataset)
-
     from dart_tpu_torch.index import build_index
 
     d = os.path.join(WORK, "8mbp_dup")
@@ -1809,7 +1623,7 @@ def make_dup(ds) -> dict:
             ends = [int(line.rsplit("-", 1)[1]) for line in f]
         genome["chrDup"] = genome["chr1"][:ends[DUP_GENES - 1] + 1000]
         fa = os.path.join(d, "genome.fa")
-        mf.write_fasta(fa, sorted(genome.items()))
+        write_fasta(fa, sorted(genome.items()))
         build_index(fa, prefix)
     return {"fq": ds["fq"], "prefix": prefix, "dir": d}
 
@@ -2760,55 +2574,6 @@ def phase_dist(big, ds, device: str, n_reads: int) -> dict:
     return {"wall_s": wall, "pairs": len(jobs)}
 
 
-def trace_summary(trace_dir: str) -> dict:
-    """Kernel time and the device's idle share from the torch.profiler
-    trace in trace_dir: kernels summed, and the share of the traced
-    window (first to last event) in which no kernel or copy ran."""
-    import glob
-    import gzip
-
-    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json*"))
-    if len(files) != 1:
-        raise AssertionError(f"expected one trace in {trace_dir}, found "
-                             f"{files}")
-    with (gzip.open if files[0].endswith(".gz") else open)(files[0],
-                                                           "rb") as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("ph") == "X" and "dur" in e]
-    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy",
-                                                 "gpu_memset")]
-    kernels = [e for e in dev if e["cat"] == "kernel"]
-    if not kernels:
-        raise AssertionError("torch.profiler traced no kernel on the card")
-    busy, end = 0.0, None
-    for e in sorted(dev, key=lambda e: e["ts"]):
-        lo, hi = e["ts"], e["ts"] + e["dur"]
-        if end is None or lo > end:
-            busy += hi - lo
-            end = hi
-        elif hi > end:
-            busy += hi - end
-            end = hi
-    start = min(e["ts"] for e in events)
-    stop = max(e["ts"] + e["dur"] for e in events)
-    by_name: dict = {}
-    for e in kernels:
-        by_name[e["name"]] = by_name.get(e["name"], 0) + e["dur"]
-    return {"kernel_ms": sum(by_name.values()) / 1e3,
-            "window_s": (stop - start) / 1e6,
-            "idle_share": 1 - busy / (stop - start),
-            "kernels_ms": {k: v / 1e3 for k, v in by_name.items()}}
-
-
-def kernel_name(name: str) -> str:
-    """A traced kernel's template name, without its namespace and
-    parameter list."""
-    import re
-
-    m = re.search(r"\w+_kernel(<[^(]*>)?", name)
-    return m.group(0) if m else name[:60]
-
-
 def phase_profile(ds, device: str) -> dict:
     """One ``--profile`` run of 8mbp_se: the trace names the seed-scan
     kernel; its kernel time and the device's idle share; the SAM equal
@@ -3549,23 +3314,15 @@ def build_big_index(fa: str, prefix: str) -> dict:
 
 
 def sim_pairs(fa: str, n: int, d: str):
-    """n pairs simulated from the genome in fa by ``bench.py``'s paired
+    """n pairs simulated from the genome in fa by the bench's paired
     steps (``sim_reads_paired``, 0.5% mismatches, seed SEED + 1)."""
     import random
 
-    if HERE not in sys.path:
-        sys.path.insert(0, HERE)
-    import bench
-
-    import make_fixtures as mf
-
     fqs = (os.path.join(d, f"pairs_{n}_1.fq"),
            os.path.join(d, f"pairs_{n}_2.fq"))
-    rng = random.Random(bench.SEED + 1)
-    r1, r2 = mf.sim_reads_paired(rng, read_genome(fa), n, bench.READ_LEN,
-                                 mismatch_rate=0.005)
-    for path, reads in zip(fqs, (r1, r2)):
-        mf.write_reads_fastq(path, reads)
+    rng = random.Random(SEED + 1)
+    write_pairs(fqs, sim_reads_paired(rng, read_genome(fa), n, READ_LEN,
+                                      mismatch_rate=0.005))
     return fqs
 
 
@@ -3753,7 +3510,7 @@ def phase_config5(idx, prefix: str, fa: str, genes: list, d: str,
                   device: str, split: int = 2**31) -> dict:
     """``--big``'s BASELINE config-5 runs, after the crossing checks, on the
     same index (``dart_tpu_torch.crossing``): ``big_sp``, N_BIG_PAIRS
-    pairs of 100 bases from ``spliced_pair_set`` (seed bench.SEED + 4;
+    pairs of 100 bases from ``spliced_pair_set`` (seed SEED + 4;
     reads from chr1-chr4, so that those from chr1's first BIG_DUP_BP
     bases map twice), then, with -bo -all_sj -m -mis 5 and the wide
     engine from a layout-cache hit:
@@ -3776,8 +3533,6 @@ def phase_config5(idx, prefix: str, fa: str, genes: list, d: str,
     name and power limit."""
     import random
 
-    import bench
-
     from dart_tpu_torch import crossing
 
     out = os.path.join(d, "config5")
@@ -3787,8 +3542,8 @@ def phase_config5(idx, prefix: str, fa: str, genes: list, d: str,
     fqs = (os.path.join(d, f"big_sp_{N_BIG_PAIRS}_1.fq"),
            os.path.join(d, f"big_sp_{N_BIG_PAIRS}_2.fq"))
     write_pairs(fqs, spliced_pair_set(
-        random.Random(bench.SEED + 4), read_genome(fa, skip="chrDup"), genes,
-        N_BIG_PAIRS, bench.READ_LEN))
+        random.Random(SEED + 4), read_genome(fa, skip="chrDup"), genes,
+        N_BIG_PAIRS, READ_LEN))
     stamp(f"big_sp: {N_BIG_PAIRS:,} pairs simulated in "
           f"{time.perf_counter() - t0:.1f} s")
     gc.collect()
@@ -3930,7 +3685,7 @@ def main() -> int:
         files = (int(args[args.index("--files") + 1]) if "--files" in args
                  else 100)
         phase("build", do_build)
-        phase("dataset", make_dataset)
+        phase("dataset", lambda: make_dataset("8mbp_se", WORK))
         if {"build", "dataset"} <= set(state):
             ds = state["dataset"]
             phase("stream_long", lambda: phase_stream_long(
@@ -3945,7 +3700,7 @@ def main() -> int:
 
     if "--cards" in sys.argv[1:]:
         phase("build", do_build)
-        phase("dataset", make_dataset)
+        phase("dataset", lambda: make_dataset("8mbp_se", WORK))
         if "dataset" in state and "build" in state:
             ds = state["dataset"]
             phase("cards", lambda: phase_cards(
@@ -3966,7 +3721,7 @@ def main() -> int:
     long_proc = start_long_plain()
     try:
         phase("build", do_build)
-        phase("dataset", make_dataset)
+        phase("dataset", lambda: make_dataset("8mbp_se", WORK))
         if "dataset" in state and "build" in state:
             ds = state["dataset"]
             toy = load_index(os.path.join(GOLD, "index", "toy"))
@@ -3985,6 +3740,7 @@ def main() -> int:
             if "dataset_sp" in state:
                 phase("spliced", lambda: phase_spliced(
                     big, ds, state["dataset_sp"], "cuda", N_PARITY))
+                phase("bench", lambda: phase_bench("cuda", N_PARITY))
             phase("dataset_li", lambda: finish_dataset(genli, LONG_INTRONS))
             if "dataset_li" in state:
                 phase("long_introns", lambda: phase_long_introns(
@@ -4033,7 +3789,7 @@ def main() -> int:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    if failed or not {"scale", "scale50", "outputs", "spliced",
+    if failed or not {"scale", "scale50", "outputs", "spliced", "bench",
                       "long_introns", "stream", "cache",
                       "nw", "mem_walks", "mesh", "dryrun", "dist", "profile",
                       "diagnosis"} <= set(state):
@@ -4057,7 +3813,8 @@ def main() -> int:
     # the narrow kernels also run on the paired BAM path ([outputs]),
     # all six on the spliced pairs ([spliced] (a)) and the long introns
     # ([long_introns], the default run), and on the 1 M-read
-    # stream ([stream] (a); the wide ones in (c))
+    # stream ([stream] (a); the wide ones in (c)), and in the bench's
+    # two configs ([bench])
     sp, li = state["spliced"], state["long_introns"]
     for path, by in (
             ("8mbp_pe_bam", state["outputs"]["t1"]["launches"]),
@@ -4065,7 +3822,8 @@ def main() -> int:
             (LONG_INTRONS, {**li["default"]["launches"],
                             **li["default_wide"]["launches"]}),
             ("stream", {**state["stream"]["a_launches"],
-                        **state["stream"]["c_launches"]})):
+                        **state["stream"]["c_launches"]}),
+            ("bench", state["bench"]["launches"])):
         for r in rows:
             if r["name"] in by:
                 r.setdefault("launches_by_path", {"8mbp_se": r["launches"]})[

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from dart_tpu_torch import crossing
+from dart_tpu_torch import benchdata, crossing
 from dart_tpu_torch.index import build_index, layout_cache, load_index
 from dart_tpu_torch.ops.fm_torch import FMIndexTorch
 
@@ -178,7 +178,7 @@ def li(tmp_path_factory):
     r1, r2 = chip_smoke.spliced_pair_set(
         random.Random(11), chip_smoke.read_genome(fa, skip="chrDup"),
         chip_smoke.read_genes(str(d / "genes.txt")), N_LI_PAIRS, 100)
-    mf = chip_smoke.fixtures()
+    mf = benchdata
     fqs = (str(d / "r1.fq"), str(d / "r2.fq"))
     mf.write_reads_fastq(fqs[0], r1)
     mf.write_reads_fastq(fqs[1], r2)

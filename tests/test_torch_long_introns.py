@@ -28,7 +28,7 @@ import torch
 import dart_tpu.aligner
 import dart_tpu.cli
 import dart_tpu.index
-from dart_tpu_torch import cli, crossing
+from dart_tpu_torch import benchdata, cli, crossing
 from dart_tpu_torch.aligner import DartAligner
 from dart_tpu_torch.index import build_index, load_index
 from dart_tpu_torch.ops.fm_torch import FMIndexTorch
@@ -101,7 +101,7 @@ def inputs(genome):
     """Each input's read flags: the pairs, the pairs as three pairs of
     files, the single-end reads."""
     genes, d = genome["genes"], genome["dir"]
-    mf = chip_smoke.fixtures()
+    mf = benchdata
     seqs = chip_smoke.read_genome(genome["fa"], skip="chrDup")
     rng = random.Random(SEED)
     r1, r2 = chip_smoke.spliced_pair_set(rng, seqs, genes, N_PAIRS, 100)

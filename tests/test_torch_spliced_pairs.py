@@ -31,7 +31,7 @@ import torch
 import dart_tpu.aligner
 import dart_tpu.cli
 import dart_tpu.index
-from dart_tpu_torch import cli
+from dart_tpu_torch import benchdata, cli
 from dart_tpu_torch.aligner import DartAligner
 from dart_tpu_torch.index import build_index, load_index
 from dart_tpu_torch.ops.fm_torch import FMIndexTorch
@@ -92,7 +92,7 @@ def work(tmp_path_factory):
 def inputs(work, data_dir):
     """The pairs as two FASTQ files, the same gzipped, and interleaved:
     each input's flags."""
-    mf = chip_smoke.fixtures()
+    mf = benchdata
     genome = chip_smoke.read_genome(str(data_dir / "toy.fa"))
     genes = chip_smoke.read_genes(str(data_dir / "toy_genes.txt"))
     r1, r2 = chip_smoke.spliced_pair_set(random.Random(SEED), genome, genes,
@@ -114,7 +114,7 @@ def indexes(work, data_dir, golden_dir):
     """Each index's prefix and its loads by the port and by dart_tpu:
     the toy index, and the toy genome with chrA's first DUP_GENES genes
     copied into chrDup (built with the port's builder)."""
-    mf = chip_smoke.fixtures()
+    mf = benchdata
     genome = chip_smoke.read_genome(str(data_dir / "toy.fa"))
     genes = chip_smoke.read_genes(str(data_dir / "toy_genes.txt"))
     genome["chrDup"] = genome["chrA"][:genes[DUP_GENES - 1][1][-1][1] + 1000]
