@@ -19,6 +19,7 @@ import time
 
 import torch
 
+from . import spans
 from .config import DartConfig
 from .constants import VERSION_STR
 from .index.loader import Index
@@ -120,17 +121,19 @@ class DartAligner:
         self.engine = engine if engine is not None else make_engine(idx, cfg)
         self.sj_map: dict = {}
         self.counters = {"total": 0, "unique": 0, "unmapped": 0, "paired": 0}
-        # no second of a run counts under two of the stages
+        # the stages' self times (spans.KEYS), each second counted once:
         # input_parse_s, device_seed_locate_s, native_finalize_s and
-        # output_s, whose sum is at most wall_s (the run's own wall).
-        # device_wait_s is the wait for a chunk's device work with the
-        # next chunk's parse and submit inside it (dart_tpu's key);
-        # device_only_wait_s is the same wait without them, and is the
-        # share of device_seed_locate_s spent waiting
-        self.stats = {"device_seed_locate_s": 0.0, "device_wait_s": 0.0,
-                      "device_only_wait_s": 0.0,
-                      "native_finalize_s": 0.0, "input_parse_s": 0.0,
-                      "output_s": 0.0, "chunks": 0, "wall_s": 0.0}
+        # output_s sum to at most wall_s (the run's own wall), and each
+        # sub-stage to at most its stage; device_only_wait_s is the part
+        # of device_seed_locate_s spent in chunks' waits, the next
+        # chunk's prefetch left out. The native finalize's two phases
+        # and the engine's copies and located rows over this run add.
+        self.stats = {**dict.fromkeys(spans.KEYS, 0.0),
+                      "finalize_parallel_s": 0.0, "finalize_serial_s": 0.0,
+                      "dtoh_bytes": 0, "htod_bytes": 0, "locate_rows": 0,
+                      "chunks": 0, "wall_s": 0.0}
+        self.spans = spans.Spans(self.stats)
+        self._n_parsed = 0  # the ordinal of the next chunk parsed
         self.native = None
         # -d uses the introspectable single-threaded Python pipeline
         # (the reference forces one thread under -d, Mapping.cpp:757)
@@ -233,84 +236,77 @@ class DartAligner:
         stays deterministic.
 
         files yields per-file state dicts ({reader, pair_end, fastq,
-        file_idx, chunks, kind}); emit(sam, fst) writes one chunk."""
-        from .pipeline.seeding import finish_chunk, submit_chunk
+        file_idx, chunks, kind}); emit(sam, fst) writes one chunk.
+        The loop runs under a dart.stream span; chunk k's parse, submit
+        and drain under dart.input#k, dart.seed.submit#k and
+        dart.chunk#k (spans.STAGES)."""
+        from .pipeline.seeding import submit_chunk
 
-        state = {"fst": next(files, None)}
+        sp = self.spans
+        chunks = self._parsed(files)
 
-        def parse_next():
-            t0 = time.time()
-            try:
-                while state["fst"] is not None:
-                    reads = state["fst"]["reader"].next_chunk()
+        def parse_submit():
+            fst, reads = next(chunks, (None, None))
+            if not reads:
+                return None
+            with sp("dart.seed.submit", self._n_parsed - 1):
+                return fst, reads, submit_chunk(self.engine, reads)
+
+        with sp.active(), sp("dart.stream"):
+            cur = parse_submit()
+            pending = parse_submit() if cur else None  # chunk k+1
+            while cur:
+                fst, reads, job = cur
+                nxt = []
+
+                def prefetch():
+                    with sp("dart.prefetch", self._n_parsed):
+                        nxt.append(parse_submit())
+
+                self._finish_chunk(reads, job, fst["pair_end"], fst["fastq"],
+                                   lambda sam, _f=fst: emit(sam, _f), prefetch)
+                if not nxt:  # eager jobs never call the hook
+                    prefetch()
+                cur, pending = pending, nxt[0]
+
+    def _parsed(self, files):
+        """The chunks of ``files`` in order, as (fst, reads), each parsed
+        (the first file's reader made too) under a dart.input#k span;
+        each reader is closed when it is spent."""
+        fst = None
+        started = False
+        while True:
+            with self.spans("dart.input", self._n_parsed):
+                if not started:
+                    fst, started = next(files, None), True
+                while fst is not None:
+                    reads = fst["reader"].next_chunk()
                     if reads:
-                        return state["fst"], reads
-                    state["fst"]["reader"].close()
-                    state["fst"] = next(files, None)
-                return None, None
-            finally:
-                self.stats["input_parse_s"] += time.time() - t0
-
-        def submit(reads):
-            t0 = time.time()
-            job = submit_chunk(self.engine, reads)
-            self.stats["device_seed_locate_s"] += time.time() - t0
-            return job
-
-        fst, reads = parse_next()
-        job = submit(reads) if reads else None
-        pending = None  # the (fst, reads, job) of chunk k+1, in flight
-        if reads:
-            f2, r2 = parse_next()
-            if r2:
-                pending = (f2, r2, submit(r2))
-        while reads:
-            nxt = {}
-
-            def prefetch():
-                f3, r3 = parse_next()
-                nxt["fst"], nxt["reads"] = f3, r3
-                nxt["job"] = submit(r3) if r3 else None
-
-            self._finish_chunk(reads, job, fst["pair_end"], fst["fastq"],
-                               lambda sam, _f=fst: emit(sam, _f), prefetch)
-            if "reads" not in nxt:  # eager jobs never call the hook
-                prefetch()
-            if pending is not None:
-                fst, reads, job = pending
-                pending = ((nxt["fst"], nxt["reads"], nxt["job"])
-                           if nxt["reads"] else None)
-            else:
-                fst, reads, job = nxt["fst"], nxt["reads"], nxt["job"]
+                        break
+                    fst["reader"].close()
+                    fst = next(files, None)
+            if fst is None:
+                return
+            self._n_parsed += 1
+            yield fst, reads
 
     def _finish_chunk(self, reads, job, pair_end: bool, fastq: bool,
                       emit, on_wait=None) -> None:
+        """Drain chunk k under dart.chunk#k: wait for its device work
+        (``on_wait`` runs inside the wait), finalize it, emit it."""
         from .pipeline.seeding import finish_chunk
 
-        hook = {"s": 0.0}
-
-        def timed_hook():
-            t = time.time()
-            on_wait()
-            hook["s"] += time.time() - t
-
-        t0 = time.time()
-        occ_off, occ_rpos, occ_len, occ_gpos = finish_chunk(
-            self.engine, job, on_wait=timed_hook if on_wait else None)
-        window = time.time() - t0
-        # the hook parses and submits the next chunk, which its own
-        # timers count under input_parse_s and device_seed_locate_s
-        self.stats["device_wait_s"] += window
-        self.stats["device_only_wait_s"] += window - hook["s"]
-        self.stats["device_seed_locate_s"] += window - hook["s"]
-        t0 = time.time()
-        sam = self.native.process_chunk(
-            reads, pair_end and len(reads) % 2 == 0, fastq,
-            occ_off, occ_rpos, occ_len, occ_gpos, self.counters)
-        self.stats["native_finalize_s"] += time.time() - t0
-        t0 = time.time()
-        emit(sam)
-        self.stats["output_s"] += time.time() - t0
+        sp = self.spans
+        k = self.stats["chunks"]
+        with sp("dart.chunk", k):
+            with sp("dart.seed.finish"):
+                occ = finish_chunk(self.engine, job, on_wait=on_wait)
+            with sp("dart.finalize"):
+                sam = self.native.process_chunk(
+                    reads, pair_end and len(reads) % 2 == 0, fastq, *occ,
+                    self.counters, self.stats)
+            with sp("dart.output"):
+                emit(sam)
         self.stats["chunks"] += 1
 
     def header_lines(self) -> list[str]:
@@ -451,7 +447,8 @@ class DartAligner:
 
         text_out = out_stream is not None and isinstance(out_stream,
                                                          _io.TextIOBase)
-        start = time.time()
+        start = time.perf_counter()
+        counts0 = self._engine_counts()
         if resume is None:
             header = self.header_lines()
             if writer is not None:
@@ -499,7 +496,8 @@ class DartAligner:
                     zip(cfg.read_files_1, files2)):
                 if resume is not None and file_idx < resume["file_idx"]:
                     continue
-                reader = make_reader(file_idx, path1, path2)
+                with spans.span("dart.input.open"):
+                    reader = make_reader(file_idx, path1, path2)
                 chunks_done = 0
                 if resume is not None and file_idx == resume["file_idx"]:
                     for _ in range(resume["chunks"]):
@@ -530,7 +528,7 @@ class DartAligner:
             if not cfg.silent:
                 print(f"\r{self.counters['total']} "
                       f"{'paired-end' if fst['pair_end'] else 'singled-end'} tags processed "
-                      f"in {int(time.time() - start)} seconds...",
+                      f"in {int(time.perf_counter() - start)} seconds...",
                       end="", file=sys.stderr)
             fst["chunks"] += 1
             if cfg.checkpoint and (
@@ -546,42 +544,59 @@ class DartAligner:
                                 fst["kind"])
                 ckpt_state["t"] = time.time()
 
-        if self.native is not None:
-            self._run_stream_pipelined(file_states(), emit)
-        else:
-            for fst in file_states():
-                reader = fst["reader"]
-                while True:
-                    reads = reader.next_chunk()
-                    if not reads:
-                        break
+        with self.spans.active():
+            if self.native is not None:
+                self._run_stream_pipelined(file_states(), emit)
+            else:
+                for fst, reads in self._parsed(file_states()):
                     emit(self.process_chunk(reads, fst["pair_end"],
                                             fst["fastq"]), fst)
-                reader.close()
-        if own:
-            if writer is not None:
-                writer.close()
-            else:
-                out_stream.close()
-        self.sj_map = self._merged_sj()
-        n_sj = write_sj_table(self.idx, self.sj_map, cfg.sj_file)
+            with self.spans("dart.tail"):
+                if own:
+                    if writer is not None:
+                        writer.close()
+                    else:
+                        out_stream.close()
+                self.sj_map = self._merged_sj()
+                n_sj = write_sj_table(self.idx, self.sj_map, cfg.sj_file)
         if cfg.checkpoint and os.path.exists(self._ckpt_path()):
             os.remove(self._ckpt_path())
         if not cfg.silent:
             print("", file=sys.stderr)
-        wall = self.stats["wall_s"] = time.time() - start
+        for key, n in self._engine_counts().items():
+            self.stats[key] += n - counts0[key]
+        wall = self.stats["wall_s"] = time.perf_counter() - start
         if cfg.stats:
-            s = self.stats
-            print(f"[stats] wall {wall:.2f}s, {s['chunks']} chunks, "
-                  f"{self.counters['total'] / max(wall, 1e-9):.0f} reads/s",
-                  file=sys.stderr)
-            print(f"[stats] device seed+locate {s['device_seed_locate_s']:.2f}s "
-                  f"(stall {s['device_only_wait_s']:.2f}s; "
-                  f"{s['device_wait_s']:.2f}s with the next chunk's "
-                  "prefetch) | native finalize "
-                  f"{s['native_finalize_s']:.2f}s | input {s['input_parse_s']:.2f}s "
-                  f"| output {s['output_s']:.2f}s", file=sys.stderr)
+            self._print_stats(wall)
         self.print_summary(n_sj)
+
+    def _engine_counts(self) -> dict:
+        """The engine's byte and row counters under their stats keys
+        (0 for an engine that has none). The engine may serve other
+        aligners, so a run keeps the change over itself."""
+        return {key: getattr(self.engine, attr, 0) for key, attr in
+                (("dtoh_bytes", "dtoh_bytes"), ("htod_bytes", "htod_bytes"),
+                 ("locate_rows", "n_locate_rows"))}
+
+    def _print_stats(self, wall: float) -> None:
+        s = self.stats
+        n = max(self.counters["total"], 1)
+        print(f"[stats] wall {wall:.2f}s, {s['chunks']} chunks, "
+              f"{self.counters['total'] / max(wall, 1e-9):.0f} reads/s",
+              file=sys.stderr)
+        print(f"[stats] input {s['input_parse_s']:.2f}s (open "
+              f"{s['input_open_s']:.2f}s) | device seed+locate "
+              f"{s['device_seed_locate_s']:.2f}s (pack {s['seed_pack_s']:.2f}s,"
+              f" sync {s['device_sync_s']:.2f}s, expand "
+              f"{s['seed_expand_s']:.2f}s; stall {s['device_only_wait_s']:.2f}s)"
+              f" | native finalize {s['native_finalize_s']:.2f}s (parallel "
+              f"{s['finalize_parallel_s']:.2f}s, serial "
+              f"{s['finalize_serial_s']:.2f}s) | output {s['output_s']:.2f}s "
+              f"(encode {s['output_encode_s']:.2f}s, deflate "
+              f"{s['output_deflate_s']:.2f}s)", file=sys.stderr)
+        print(f"[stats] copies {s['dtoh_bytes'] / n:.1f} B/read to the host, "
+              f"{s['htod_bytes'] / n:.1f} B/read to the device; "
+              f"{s['locate_rows'] / n:.3f} located rows/read", file=sys.stderr)
 
     def print_summary(self, n_sj: int) -> None:
         c = self.counters

@@ -620,7 +620,7 @@ def check_config5_stream(idx, prefix: str, r1: str, r2: str, out: str,
         res = stream.run_stream(idx, cfg, n_files, device, engine,
                                 log=io.StringIO())
     res["stats"] = [ln[8:] for ln in err.getvalue().splitlines()
-                    if ln.startswith("[stats]")][-2:]  # the stream's own
+                    if ln.startswith("[stats]")][-3:]  # the stream's own
     files = (cfg.output_file, cfg.sj_file)
     res["check"] = stream.check_stream(files, one, n_files, "bam")
     res["files"] = files

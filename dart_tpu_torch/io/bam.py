@@ -13,6 +13,8 @@ import ctypes
 import struct
 import zlib
 
+from ..spans import span
+
 SEQ_NT16 = {b: i for i, b in enumerate("=ACMGRSVTWYHKDBN")}
 CIGAR_OPS = {op: i for i, op in enumerate("MIDNSHP=X")}
 
@@ -181,7 +183,9 @@ class BamWriter:
     def write_sam_bytes(self, sam: bytes) -> None:
         """Encode a whole SAM-text chunk ('@' lines skipped) through
         the native encoder (native/bamenc.cpp) — the BAM-output hot
-        path; falls back to the per-record Python twin."""
+        path, its encode and its BGZF deflate and write under
+        dart.output.encode and dart.output.deflate spans; falls back to
+        the per-record Python twin."""
         if BamWriter._ENC is None:
             from ..native import build as native_build
 
@@ -199,15 +203,18 @@ class BamWriter:
                 if line and not line.startswith("@"):
                     self.write_record(line)
             return
-        names = ("\n".join(self.ref_ids) + "\n").encode()
-        cap = len(sam) + len(sam) // 2 + 4096
-        while True:
-            buf = (ctypes.c_uint8 * cap)()
-            n = BamWriter._ENC(sam, len(sam), names, buf, cap)
-            if n >= 0:
-                break
-            cap *= 2
-        self.bgzf.write(ctypes.string_at(buf, int(n)))
+        with span("dart.output.encode"):
+            names = ("\n".join(self.ref_ids) + "\n").encode()
+            cap = len(sam) + len(sam) // 2 + 4096
+            while True:
+                buf = (ctypes.c_uint8 * cap)()
+                n = BamWriter._ENC(sam, len(sam), names, buf, cap)
+                if n >= 0:
+                    break
+                cap *= 2
+            data = ctypes.string_at(buf, int(n))
+        with span("dart.output.deflate"):
+            self.bgzf.write(data)
 
     def write_record(self, sam_line: str) -> None:
         f = sam_line.split("\t")

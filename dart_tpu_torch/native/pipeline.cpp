@@ -15,6 +15,7 @@
 
 #include <algorithm>
 #include <atomic>
+#include <chrono>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
@@ -1408,6 +1409,9 @@ void dart_pipe_destroy(void* ctx) { delete (Ctx*)ctx; }
 // Processes one chunk; returns the byte length of the SAM text, readable
 // via dart_pipe_sam_ptr until the next call. counters_out: int64[3]
 // {unique, unmapped, paired} cumulative deltas for this chunk.
+// phase_ns_out: int64[2], the wall nanoseconds of the parallel compute
+// phase and of the serial junction + SAM phase, read on the calling
+// thread alone.
 int64_t dart_pipe_chunk(void* ctxp, int32_t n_reads, int32_t pair_end,
                         int32_t fastq, int32_t n_threads,
                         const char* seq_blob,
@@ -1415,7 +1419,10 @@ int64_t dart_pipe_chunk(void* ctxp, int32_t n_reads, int32_t pair_end,
                         const int64_t* qual_off, const char* hdr_blob,
                         const int64_t* hdr_off, const int64_t* occ_off,
                         const int32_t* occ_rpos, const int32_t* occ_len,
-                        const int64_t* occ_gpos, int64_t* counters_out) {
+                        const int64_t* occ_gpos, int64_t* counters_out,
+                        int64_t* phase_ns_out) {
+  using Clock = std::chrono::steady_clock;
+  const Clock::time_point t0 = Clock::now();
   Ctx& C = *(Ctx*)ctxp;
   C.sam.clear();
   int64_t u0 = C.n_unique, m0 = C.n_unmapped, p0 = C.n_paired;
@@ -1494,6 +1501,8 @@ int64_t dart_pipe_chunk(void* ctxp, int32_t n_reads, int32_t pair_end,
     for (int32_t i = 0; i < n_reads; i += step) compute(i, seeds);
   }
 
+  const Clock::time_point t1 = Clock::now();
+
   // serial phase: junction accumulation + ordered output
   for (int32_t i = 0; i < n_reads; i += step) {
     Read& r1 = reads[(size_t)i];
@@ -1518,6 +1527,11 @@ int64_t dart_pipe_chunk(void* ctxp, int32_t n_reads, int32_t pair_end,
   counters_out[0] = C.n_unique - u0;
   counters_out[1] = C.n_unmapped - m0;
   counters_out[2] = C.n_paired - p0;
+  const Clock::time_point t2 = Clock::now();
+  phase_ns_out[0] =
+      std::chrono::duration_cast<std::chrono::nanoseconds>(t1 - t0).count();
+  phase_ns_out[1] =
+      std::chrono::duration_cast<std::chrono::nanoseconds>(t2 - t1).count();
   return (int64_t)C.sam.size();
 }
 

@@ -40,6 +40,7 @@ import time
 import numpy as np
 import torch
 
+from ..spans import span
 from . import build
 from .fm_plain import (locate_plain, lut_build_plain, mem_walks_plain,
                        seed_scan_plain)
@@ -82,7 +83,11 @@ class FMIndexTorch:
         self.lut_k = int(lut_k)
         self.n_seed_launches = 0
         self.n_locate_launches = 0
-        self.n_locate_rows = 0  # rows located by the locate launches
+        self.n_locate_rows = 0  # rows located by locate_rows
+        # bytes of the seeding path's copies between host and card
+        # (none on the CPU), at its four copy sites (_upload, _download)
+        self.htod_bytes = 0
+        self.dtoh_bytes = 0
         self.n_lut_launches = 0
         self.n_mem_walks_launches = 0
         t0 = time.perf_counter()
@@ -236,6 +241,7 @@ class FMIndexTorch:
         """SA positions of BWT rows (N,) -> (N,), int32 narrow and int64
         wide."""
         self._check(rows, 1, self.idx_dtype)
+        self.n_locate_rows += rows.numel()
         if rows.device.type == "cpu":
             return self.plain_locate(rows)
         out = torch.empty_like(rows)
@@ -243,7 +249,6 @@ class FMIndexTorch:
             self._launch("locate", "locate", rows.data_ptr(), rows.numel(),
                          out.data_ptr())
             self.n_locate_launches += 1
-            self.n_locate_rows += rows.numel()
         return out
 
     def build_lut(self) -> torch.Tensor:
@@ -346,16 +351,36 @@ class FMIndexTorch:
         needed, since the mask always goes with the reads."""
         words = Lp // 16
         S = self.seed_slots(Lp, max_rlen)
-        dev = torch.from_numpy(pack_host(buf, nmask, nlive, words))
-        return {"out": self.seed_scan(dev.to(self.device), words, S),
+        with span("dart.seed.pack"):
+            host = torch.from_numpy(pack_host(buf, nmask, nlive, words))
+        return {"out": self.seed_scan(self._upload(host), words, S),
                 "S": S}
 
     def seed_finish(self, job, on_wait=None):
         """Wait for a submitted scan. Returns (n, rpos, len, k0, freq)."""
-        o = job["out"].cpu().numpy()
+        o = self._download(job["out"])
         if on_wait is not None:
             on_wait()
-        return self.split_seeds(o, job["S"])
+        with span("dart.seed.expand"):
+            return self.split_seeds(o, job["S"])
+
+    def _upload(self, t: torch.Tensor) -> torch.Tensor:
+        """A host tensor on the engine's device, under a dart.seed.sync
+        span; its bytes count in ``htod_bytes`` when that is a card."""
+        with span("dart.seed.sync"):
+            out = t.to(self.device)
+        if out.is_cuda:
+            self.htod_bytes += t.numel() * t.element_size()
+        return out
+
+    def _download(self, t: torch.Tensor) -> np.ndarray:
+        """A device tensor on the host, under a dart.seed.sync span; its
+        bytes count in ``dtoh_bytes`` when it was on a card."""
+        with span("dart.seed.sync"):
+            out = t.cpu()
+        if t.is_cuda:
+            self.dtoh_bytes += t.numel() * t.element_size()
+        return out.numpy()
 
     @staticmethod
     def split_seeds(o: np.ndarray, S: int):
@@ -371,12 +396,12 @@ class FMIndexTorch:
             return None
         t = torch.from_numpy(np.asarray(
             rows, dtype=np.int64 if self.wide else np.int32))
-        return self.locate_rows(t.to(self.device))
+        return self.locate_rows(self._upload(t))
 
     def locate_finish(self, job) -> np.ndarray:
         if job is None:
             return np.empty(0, dtype=np.int64)
-        return job.cpu().numpy().astype(np.int64)
+        return self._download(job).astype(np.int64)
 
     def locate(self, rows: np.ndarray) -> np.ndarray:
         return self.locate_finish(self.locate_submit(rows))

@@ -47,7 +47,7 @@ def _bind():
         ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
         ctypes.c_int32,
         ctypes.c_char_p, i64p, ctypes.c_char_p, i64p, ctypes.c_char_p, i64p,
-        i64p, i32p, i32p, i64p, i64p]
+        i64p, i32p, i32p, i64p, i64p, i64p]
     c.dart_pipe_sam_ptr.restype = ctypes.c_void_p
     c.dart_pipe_sam_ptr.argtypes = [ctypes.c_void_p]
     c.dart_pipe_sj_dump.restype = ctypes.c_int64
@@ -179,10 +179,12 @@ class NativePipeline:
 
     def process_chunk(self, reads, pair_end: bool, fastq: bool,
                       occ_off, occ_rpos, occ_len, occ_gpos,
-                      counters: dict) -> bytes:
+                      counters: dict, stats: dict | None = None) -> bytes:
         """Run chaining -> finalize -> output for one chunk. Seed inputs
         are the flattened per-occurrence tables (see seeding module).
-        Returns the chunk's SAM text."""
+        Returns the chunk's SAM text. ``stats``, when given, gains the
+        seconds of the parallel compute phase and of the serial
+        junction + SAM phase (finalize_parallel_s, finalize_serial_s)."""
         n = len(reads)
         if hasattr(reads, "seq_blob"):  # BlobChunk: zero-copy
             seq_blob = reads.seq_blob
@@ -218,6 +220,7 @@ class NativePipeline:
         occ_len = _i32(occ_len)
         occ_gpos = _i64(occ_gpos)
         cnt = np.zeros(3, dtype=np.int64)
+        phase_ns = np.zeros(2, dtype=np.int64)
         size = self._c.dart_pipe_chunk(
             self.ctx, n, int(pair_end), int(fastq), self.threads,
             seq_blob, _ptr(seq_off, ctypes.c_int64),
@@ -225,11 +228,15 @@ class NativePipeline:
             hdr_blob, _ptr(hdr_off, ctypes.c_int64),
             _ptr(occ_off, ctypes.c_int64), _ptr(occ_rpos, ctypes.c_int32),
             _ptr(occ_len, ctypes.c_int32), _ptr(occ_gpos, ctypes.c_int64),
-            _ptr(cnt, ctypes.c_int64))
+            _ptr(cnt, ctypes.c_int64), _ptr(phase_ns, ctypes.c_int64))
         counters["unique"] += int(cnt[0])
         counters["unmapped"] += int(cnt[1])
         counters["paired"] += int(cnt[2])
         counters["total"] += n
+        if stats is not None:
+            for key, ns in zip(("finalize_parallel_s", "finalize_serial_s"),
+                               phase_ns.tolist()):
+                stats[key] += ns * 1e-9
         ptr = self._c.dart_pipe_sam_ptr(self.ctx)
         return ctypes.string_at(ptr, size)
 

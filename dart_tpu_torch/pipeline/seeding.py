@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..constants import MIN_SEED_LEN
+from ..spans import span
 from .structs import SeedPair
 
 
@@ -93,27 +94,29 @@ def submit_chunk(engine, reads):
     reference's producer/consumer pool, with the device's stream as
     the buffer). Returns an opaque job for finish_chunk."""
     if hasattr(engine, "seed_submit_packed") and hasattr(reads, "seq_blob"):
-        lens = np.diff(reads.seq_off)
-        L = int(lens.max()) if len(reads) else 1
-        if L < 65536:
-            from .native_chunk import pack_reads_strided
+        from .native_chunk import pack_reads_strided
 
-            Lp = max(32, -(-L // 32) * 32)
-            words = Lp // 16
-            Rp = engine._pad_up(len(reads), engine._min_bucket)
-            # [packed codes | rlen] and the N mask, which
-            # seed_submit_packed joins into one transfer buffer
-            buf = np.zeros((Rp, words + 1), dtype=np.uint32)
-            nmask = np.zeros((Rp, words // 2), dtype=np.uint32)
-            has_n = np.zeros(Rp, dtype=np.uint8)
-            n_with_n = pack_reads_strided(
-                reads.seq_blob, reads.seq_off, len(reads), words,
-                buf[:, :words], nmask, buf.view(np.int32)[:, words],
-                has_n)
-            if n_with_n is not None:
-                job = engine.seed_submit_packed(
-                    buf, nmask, has_n, n_with_n, len(reads), Lp, L)
-                return ("seed_job", job, len(reads))
+        with span("dart.seed.pack"):
+            lens = np.diff(reads.seq_off)
+            L = int(lens.max()) if len(reads) else 1
+            n_with_n = None
+            if L < 65536:
+                Lp = max(32, -(-L // 32) * 32)
+                words = Lp // 16
+                Rp = engine._pad_up(len(reads), engine._min_bucket)
+                # [packed codes | rlen] and the N mask, which
+                # seed_submit_packed joins into one transfer buffer
+                buf = np.zeros((Rp, words + 1), dtype=np.uint32)
+                nmask = np.zeros((Rp, words // 2), dtype=np.uint32)
+                has_n = np.zeros(Rp, dtype=np.uint8)
+                n_with_n = pack_reads_strided(
+                    reads.seq_blob, reads.seq_off, len(reads), words,
+                    buf[:, :words], nmask, buf.view(np.int32)[:, words],
+                    has_n)
+        if n_with_n is not None:
+            job = engine.seed_submit_packed(
+                buf, nmask, has_n, n_with_n, len(reads), Lp, L)
+            return ("seed_job", job, len(reads))
     # generic path (NumPy engine, ReadItem chunks, very long reads, or
     # no native library): compute everything eagerly
     return ("eager", _seed_occurrence_tables_eager(engine, reads), None)
@@ -156,43 +159,53 @@ def _seed_occurrence_tables_eager(engine, reads):
 
 def _expand_occurrences(engine, n, rpos, slen, k0, freq, n_reads,
                         on_wait=None):
-    S = rpos.shape[1]
-    valid = np.arange(S)[None, :] < n[:, None]
-    # freq == -1 marks a "direct" seed (fast-extension path): unique
-    # occurrence, genome position already in the k0 slot
-    direct_seed = (valid & (freq < 0)).ravel()
-    freq_v = np.where(valid, np.where(freq < 0, 1, freq), 0).astype(np.int64)
-    occ_per_seed = freq_v.ravel()
-    total = int(occ_per_seed.sum())
-    occ_off = np.zeros(n_reads + 1, dtype=np.int64)
-    np.cumsum(freq_v.sum(axis=1), out=occ_off[1:])
+    # host work under dart.seed.expand spans; the locate's copies (the
+    # engine's dart.seed.sync spans) and on_wait run between them
+    with span("dart.seed.expand"):
+        S = rpos.shape[1]
+        valid = np.arange(S)[None, :] < n[:, None]
+        # freq == -1 marks a "direct" seed (fast-extension path): unique
+        # occurrence, genome position already in the k0 slot
+        direct_seed = (valid & (freq < 0)).ravel()
+        freq_v = np.where(valid, np.where(freq < 0, 1, freq),
+                          0).astype(np.int64)
+        occ_per_seed = freq_v.ravel()
+        total = int(occ_per_seed.sum())
+        occ_off = np.zeros(n_reads + 1, dtype=np.int64)
+        np.cumsum(freq_v.sum(axis=1), out=occ_off[1:])
+        if total:
+            starts = np.repeat(k0.ravel().astype(np.int64), occ_per_seed)
+            cum = np.zeros(occ_per_seed.shape[0] + 1, dtype=np.int64)
+            np.cumsum(occ_per_seed, out=cum[1:])
+            within = (np.arange(total, dtype=np.int64)
+                      - np.repeat(cum[:-1], occ_per_seed))
+            rows = starts + within
+            direct_occ = np.repeat(direct_seed, occ_per_seed)
+            occ_gpos = np.empty(total, dtype=np.int64)
+            occ_gpos[direct_occ] = rows[direct_occ]  # = gpos + within(0)
+            nd = ~direct_occ
+            located = rows[nd]
     if total == 0:
         if on_wait is not None:
             on_wait()
         z = np.empty(0, dtype=np.int64)
         return occ_off, z, z, z
-    starts = np.repeat(k0.ravel().astype(np.int64), occ_per_seed)
-    cum = np.zeros(occ_per_seed.shape[0] + 1, dtype=np.int64)
-    np.cumsum(occ_per_seed, out=cum[1:])
-    within = np.arange(total, dtype=np.int64) - np.repeat(cum[:-1], occ_per_seed)
-    rows = starts + within
-    direct_occ = np.repeat(direct_seed, occ_per_seed)
-    occ_gpos = np.empty(total, dtype=np.int64)
-    occ_gpos[direct_occ] = rows[direct_occ]  # = gpos + within(0)
-    nd = ~direct_occ
-    if nd.any():
+    if located.shape[0]:
         if hasattr(engine, "locate_submit"):
-            loc_job = engine.locate_submit(rows[nd])
+            loc_job = engine.locate_submit(located)
             if on_wait is not None:
                 on_wait()  # next chunk's seed round queues BEHIND this
                 on_wait = None
-            occ_gpos[nd] = engine.locate_finish(loc_job)
+            gpos = engine.locate_finish(loc_job)
         else:
-            occ_gpos[nd] = engine.locate(rows[nd])
+            gpos = engine.locate(located)
     if on_wait is not None:
         on_wait()
-    occ_rpos = np.repeat(rpos.ravel(), occ_per_seed)
-    occ_len = np.repeat(slen.ravel(), occ_per_seed)
+    with span("dart.seed.expand"):
+        if located.shape[0]:
+            occ_gpos[nd] = gpos
+        occ_rpos = np.repeat(rpos.ravel(), occ_per_seed)
+        occ_len = np.repeat(slen.ravel(), occ_per_seed)
     return occ_off, occ_rpos, occ_len, occ_gpos
 
 

@@ -15,28 +15,32 @@ PORT, ORIG = ROOT / "dart_tpu_torch", ROOT / "dart_tpu"
 
 IDENTICAL = [
     "index/__init__.py", "index/suffix_array.py", "io/__init__.py",
-    "io/bam.py", "io/fastx_fast.py", "native/__init__.py",
+    "io/fastx_fast.py", "native/__init__.py",
     "native/layout.cpp", "ops/__init__.py", "pipeline/__init__.py",
     "pipeline/chaining.py", "pipeline/cigar.py", "pipeline/finalize.py",
-    "pipeline/junctions.py", "pipeline/kmer.py", "pipeline/native_chunk.py",
-    "pipeline/pairing.py", "pipeline/report.py", "pipeline/structs.py",
+    "pipeline/junctions.py", "pipeline/kmer.py", "pipeline/pairing.py", "pipeline/report.py", "pipeline/structs.py",
 ]
 COMMENTS_ONLY = [
     "__init__.py", "config.py", "constants.py", "evaluation.py",
     "index/builder.py", "index/layout_cache.py", "index/loader.py",
     "index/packer.py", "io/fastx.py", "ops/nw_numpy.py",
     "parallel/__init__.py", "native/bamenc.cpp", "native/pack.cpp",
-    "native/pipeline.cpp", "native/sais.cpp", "native/zoo.cpp",
+    "native/sais.cpp", "native/zoo.cpp",
 ]
 BY_DESIGN = {
     "aligner.py": "the engine is FMIndexTorch on a device; no JAX engine "
-                  "choice, compile cache or jax.profiler; the prefetch "
-                  "hook inside a chunk's wait is timed apart, so that its "
-                  "parse and submit count once (device_only_wait_s, "
-                  "wall_s)",
+                  "choice, compile cache or jax.profiler; the stages are "
+                  "timed by the span stack of spans.py in place of a timed "
+                  "hook, so that the prefetch inside a chunk's wait counts "
+                  "once (device_only_wait_s, wall_s)",
     "cli.py": "--device, the port's usage, torch.distributed flags",
     "native/build.py": "its own library name, libdart_torch_native, built "
                        "into dart_tpu_torch/_build",
+    "io/bam.py": "spans/phase counters the JAX package does not have",
+    "pipeline/native_chunk.py": "spans/phase counters the JAX package does "
+                                "not have",
+    "native/pipeline.cpp": "spans/phase counters the JAX package does not "
+                           "have",
     "pipeline/seeding.py": "no seed_drain path: the engine's kernels run "
                            "every lane to its end in one launch",
     "parallel/distributed.py": "torch.distributed over gloo in place of "

@@ -31,7 +31,7 @@ import torch
 import dart_tpu.aligner
 import dart_tpu.cli
 import dart_tpu.index
-from dart_tpu_torch import benchdata, cli
+from dart_tpu_torch import benchdata, cli, spans
 from dart_tpu_torch.aligner import DartAligner
 from dart_tpu_torch.index import build_index, load_index
 from dart_tpu_torch.ops.fm_torch import FMIndexTorch
@@ -136,6 +136,8 @@ def runs(work, inputs, indexes):
     done = {}
 
     def run(case, who):
+        """... and, for the port, each span's stage with the stages open
+        around it (``Nesting.seen``)."""
         if (case, who) in done:
             return done[case, who]
         index, reads, flags = CASES[case][:3]
@@ -150,16 +152,31 @@ def runs(work, inputs, indexes):
             if who == "port":
                 aligner = DartAligner(port_idx, cli.parse_args(argv),
                                       engine=FMIndexTorch(port_idx, "cpu"))
+                aligner.spans = Nesting(aligner.stats)
             else:
                 cfg = dart_tpu.cli.parse_args(argv)
                 cfg.engine = who
                 aligner = dart_tpu.aligner.DartAligner(ref_idx, cfg)
             aligner.run()
         done[case, who] = (open(f"{out}.aln", "rb").read(),
-                           open(f"{out}.tab", "rb").read(), aligner.stats)
+                           open(f"{out}.tab", "rb").read(), aligner.stats,
+                           aligner.spans.seen if who == "port" else None)
         return done[case, who]
 
     return run
+
+
+class Nesting(spans.Spans):
+    """Spans that note each span's stage with the stages open around it,
+    outermost first."""
+
+    def __init__(self, stats):
+        super().__init__(stats)
+        self.seen = []
+
+    def __call__(self, stage, k=None):
+        self.seen.append((stage, [e[0] for e in self._open]))
+        return super().__call__(stage, k)
 
 
 def records(sam: bytes) -> list:
@@ -213,9 +230,10 @@ def test_stage_times_count_each_second_once(stream, runs, inputs, indexes,
     """Over runs of several chunks, where the hook inside each chunk's
     wait parses and submits the next, the four stage times add up to no
     more than the run's wall plus STAGE_SLACK_S; the wait without the
-    hook is a part of the device stage, and the hook did run."""
+    hook is a part of the device stage, and the hook's parses ran inside
+    a chunk's span."""
     if stream == "spliced_pairs":
-        stats = runs("mis5", "port")[2]  # BATCH reads a chunk
+        stats, seen = runs("mis5", "port")[2:]  # BATCH reads a chunk
     else:  # mate 1 as a single-end stream of two files
         prefix, port_idx, _ = indexes["toy"]
         cfg = cli.parse_args(["-i", prefix, "-f", *inputs["se"] * 2, "-o",
@@ -223,10 +241,15 @@ def test_stage_times_count_each_second_once(stream, runs, inputs, indexes,
                               "-silent", "--batch", str(BATCH)])
         aligner = DartAligner(port_idx, cfg,
                               engine=FMIndexTorch(port_idx, "cpu"))
+        aligner.spans = Nesting(aligner.stats)
         with contextlib.redirect_stdout(io.StringIO()):
             aligner.run()
-        stats = aligner.stats
+        stats, seen = aligner.stats, aligner.spans.seen
     assert stats["chunks"] >= 4
     assert sum(stats[k] for k in STAGES) <= stats["wall_s"] + STAGE_SLACK_S
     assert 0 <= stats["device_only_wait_s"] <= stats["device_seed_locate_s"]
-    assert stats["device_only_wait_s"] < stats["device_wait_s"]
+    prefetched = [around for stage, around in seen
+                  if stage == "dart.input" and "dart.prefetch" in around]
+    assert len(prefetched) >= 2
+    assert all(around[-1] == "dart.prefetch" and "dart.chunk" in around
+               for around in prefetched)
