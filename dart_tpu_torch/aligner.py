@@ -127,11 +127,12 @@ class DartAligner:
         # sub-stage to at most its stage; device_only_wait_s is the part
         # of device_seed_locate_s spent in chunks' waits, the next
         # chunk's prefetch left out. The native finalize's two phases
-        # and the engine's copies and located rows over this run add.
+        # and the engine's copies and located rows over this run add, as
+        # do the reads the native input pass emitted (input_native_reads).
         self.stats = {**dict.fromkeys(spans.KEYS, 0.0),
                       "finalize_parallel_s": 0.0, "finalize_serial_s": 0.0,
                       "dtoh_bytes": 0, "htod_bytes": 0, "locate_rows": 0,
-                      "chunks": 0, "wall_s": 0.0}
+                      "input_native_reads": 0, "chunks": 0, "wall_s": 0.0}
         self.spans = spans.Spans(self.stats)
         self._n_parsed = 0  # the ordinal of the next chunk parsed
         self.native = None
@@ -288,6 +289,8 @@ class DartAligner:
             if fst is None:
                 return
             self._n_parsed += 1
+            if hasattr(reads, "seq_blob"):  # a BlobChunk: native/fastx.cpp
+                self.stats["input_native_reads"] += len(reads)
             yield fst, reads
 
     def _finish_chunk(self, reads, job, pair_end: bool, fastq: bool,
@@ -462,8 +465,8 @@ class DartAligner:
         files2 = cfg.read_files_2 if cfg.read_files_2 else [None] * len(cfg.read_files_1)
 
         def make_reader(file_idx: int, path1: str, path2):
-            # inputs of manageable size use the vectorized whole-buffer
-            # readers feeding the native pipeline blobs
+            # inputs of manageable size use the whole-file readers whose
+            # native pass (native/fastx.cpp) feeds the pipeline blobs
             small = os.path.getsize(path1) < (8 << 30)
             # the first-chunk ramp (a small first chunk so the device
             # starts after milliseconds of parsing) predates keeping
@@ -585,7 +588,8 @@ class DartAligner:
               f"{self.counters['total'] / max(wall, 1e-9):.0f} reads/s",
               file=sys.stderr)
         print(f"[stats] input {s['input_parse_s']:.2f}s (open "
-              f"{s['input_open_s']:.2f}s) | device seed+locate "
+              f"{s['input_open_s']:.2f}s; {s['input_native_reads']} reads "
+              f"native) | device seed+locate "
               f"{s['device_seed_locate_s']:.2f}s (pack {s['seed_pack_s']:.2f}s,"
               f" sync {s['device_sync_s']:.2f}s, expand "
               f"{s['seed_expand_s']:.2f}s; stall {s['device_only_wait_s']:.2f}s)"

@@ -23,7 +23,7 @@ _LOCK = threading.Lock()
 _LIB = None
 
 SOURCES = ["sais.cpp", "zoo.cpp", "pipeline.cpp", "pack.cpp", "bamenc.cpp",
-           "layout.cpp"]
+           "layout.cpp", "fastx.cpp"]
 
 
 def _tsan() -> bool:
