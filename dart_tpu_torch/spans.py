@@ -18,12 +18,17 @@ While the profiler records, each span is also a
 ``torch.profiler.record_function`` range named ``<stage>#<k>``, on the
 profiler's clock beside the card's kernels and copies. With no profiler
 recording none is entered: a span then costs two clock reads and an add
-a key. Spans are kept nowhere else.
+a key. Spans are kept nowhere else. A span on another thread than the
+profiler's enters its range too, which a profiler of all threads
+records.
 
-A ``Spans`` recorder belongs to one aligner; ``active`` makes it the
-recorder of the calling thread for a block, so that the seeding code,
-the engine and the BAM writer below the aligner open spans through
-``span``, which does nothing where no recorder is active.
+A ``Spans`` recorder keeps one stack of open spans, so it serves one
+thread: the aligner's main thread has one, and its finalize worker
+another, both adding to the aligner's ``stats`` under keys of their
+own. ``active`` makes a recorder the calling thread's for a block, so
+that the seeding code, the engine and the BAM writer below the aligner
+open spans through ``span``, which does nothing where no recorder is
+active.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ STAGES = {
     "dart.seed.sync": ("seeding", ("device_sync_s",)),
     "dart.seed.expand": ("seeding", ("seed_expand_s",)),
     "dart.finalize": ("finalize", ("native_finalize_s",)),
+    "dart.finalize.wait": ("finalize", ("finalize_wait_s",)),
     "dart.output": ("output", ("output_s",)),
     "dart.output.encode": ("output", ("output_encode_s",)),
     "dart.output.deflate": ("output", ("output_deflate_s",)),
@@ -106,7 +112,7 @@ class _Span:
             if layer is not None and layer == p_layer:
                 keys = keys + tuple(x for x in p_keys if x not in keys)
         rec._open.append((self.stage, layer, keys, self.k))
-        if torch._C._autograd._profiler_enabled():
+        if profiling():
             name = self.stage if self.k is None else f"{self.stage}#{self.k}"
             self._range = torch.profiler.record_function(name)
             self._range.__enter__()
@@ -119,6 +125,14 @@ class _Span:
         finally:
             self.rec._charge()
             self.rec._open.pop()
+
+
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` records: one enabled for the calling
+    thread, or one started on any thread (a profiler of all threads is
+    enabled for none)."""
+    return (torch._C._autograd._profiler_enabled()
+            or torch.autograd.profiler._is_profiler_enabled)
 
 
 def span(stage: str, k: int | None = None):

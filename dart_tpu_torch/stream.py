@@ -240,13 +240,13 @@ def run_stream(idx, cfg, n_files: int, device="cuda", engine=None,
         torch.cuda.reset_peak_memory_stats(dev)
     records = []
     clock = {"last": 0.0}
-    orig = aligner._finish_chunk
+    orig = aligner._write_chunk
 
-    def finish_chunk(reads, job, pair_end, fastq, emit, on_wait=None):
-        before = aligner.counters["total"]
-        orig(reads, job, pair_end, fastq, emit, on_wait)
+    def write_chunk(reads, finalized, emit):
+        orig(reads, finalized, emit)
         now = time.perf_counter()
-        n = aligner.counters["total"] - before
+        n = len(reads)  # what the chunk's finalize added to the total
+        before = aligner.counters["total"] - n
         dt = now - clock["last"]
         clock["last"] = now
         rec = {"file": before // per_file, "reads": n, "t": now, "s": dt,
@@ -264,7 +264,7 @@ def run_stream(idx, cfg, n_files: int, device="cuda", engine=None,
                  f" own {_mib(mem['own'])} MiB" if mem else ""), file=log,
               flush=True)
 
-    aligner._finish_chunk = finish_chunk
+    aligner._write_chunk = write_chunk
     t0 = clock["last"] = time.perf_counter()
     with contextlib.redirect_stdout(log):
         aligner.run()

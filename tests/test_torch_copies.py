@@ -32,7 +32,10 @@ BY_DESIGN = {
                   "choice, compile cache or jax.profiler; the stages are "
                   "timed by the span stack of spans.py in place of a timed "
                   "hook, so that the prefetch inside a chunk's wait counts "
-                  "once (device_only_wait_s, wall_s)",
+                  "once (device_only_wait_s, wall_s); the native finalize "
+                  "of chunk k runs on one worker thread while the main "
+                  "thread seeds chunk k+1, and chunks are written in order "
+                  "(finalize_wait_s)",
     "cli.py": "--device, the port's usage, torch.distributed flags",
     "native/build.py": "its own library name, libdart_torch_native, built "
                        "into dart_tpu_torch/_build",

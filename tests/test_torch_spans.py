@@ -33,7 +33,7 @@ import pytest
 import torch
 
 from dart_tpu_torch import cli, spans
-from dart_tpu_torch.aligner import DartAligner
+from dart_tpu_torch.aligner import DartAligner, all_threads
 from dart_tpu_torch.index import build_index, load_index
 from dart_tpu_torch.ops.fm_torch import FMIndexTorch
 
@@ -61,7 +61,8 @@ PARENTS = {
     "dart.seed.sync": ("dart.seed.submit", "dart.seed.finish"),
     "dart.seed.expand": ("dart.seed.finish",),
     "dart.seed.finish": ("dart.chunk",),
-    "dart.finalize": ("dart.chunk",),
+    "dart.finalize": (None,),  # on the finalize worker's thread
+    "dart.finalize.wait": ("dart.chunk",),
     "dart.output": ("dart.chunk",),
     "dart.output.encode": ("dart.output",),
     "dart.output.deflate": ("dart.output",),
@@ -75,6 +76,7 @@ SELF_TIMES = {
     "seed_expand_s": ("dart.seed.expand", None),
     "device_only_wait_s": ("dart.seed.finish", "dart.prefetch"),
     "native_finalize_s": ("dart.finalize", None),
+    "finalize_wait_s": ("dart.finalize.wait", None),
     "output_s": ("dart.output", None),
     "output_encode_s": ("dart.output.encode", None),
     "output_deflate_s": ("dart.output.deflate", None),
@@ -87,6 +89,7 @@ READERS = {
     "seed_expand_us_per_read": ("seed_expand_s", 1e6),
     "finalize_parallel_us_per_read": ("finalize_parallel_s", 1e6),
     "finalize_serial_us_per_read": ("finalize_serial_s", 1e6),
+    "finalize_wait_us_per_read": ("finalize_wait_s", 1e6),
     "output_encode_us_per_read": ("output_encode_s", 1e6),
     "output_deflate_us_per_read": ("output_deflate_s", 1e6),
     "dtoh_bytes_per_read": ("dtoh_bytes", 1),
@@ -198,13 +201,14 @@ def runs(work, toy):
 
 @pytest.fixture(scope="module")
 def traced(work, toy, runs):
-    """``pe_bam`` again under a CPU ``torch.profiler`` (the plain
-    kernels' results kept from ``runs``): (its stats, each dart. range
-    as (stage, k, start, end) in seconds)."""
+    """``pe_bam`` again under a CPU ``torch.profiler`` of all threads
+    (the plain kernels' results kept from ``runs``): (its stats, each
+    dart. range as (stage, k, start, end in seconds, thread))."""
     from torch.profiler import ProfilerActivity, profile
 
     idx, engine = toy
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
+    with profile(activities=[ProfilerActivity.CPU],
+                 experimental_config=all_threads()) as prof:
         aligner = align(idx, engine, pe_bam_argv(work, "traced"))
     path = str(work / "trace.json")
     prof.export_chrome_trace(path)
@@ -215,16 +219,17 @@ def traced(work, toy, runs):
         if e.get("ph") == "X" and str(e.get("name", "")).startswith("dart."):
             stage, _, k = e["name"].partition("#")
             ranges.append((stage, int(k) if k else None, e["ts"] * 1e-6,
-                           (e["ts"] + e["dur"]) * 1e-6))
+                           (e["ts"] + e["dur"]) * 1e-6, e["tid"]))
     assert (work / "traced.bam").read_bytes() == \
         (work / "pe_bam.bam").read_bytes()
     return aligner.stats, ranges
 
 
 def parent_of(r, ranges):
-    """The smallest range other than ``r`` that holds it."""
+    """The smallest range other than ``r`` on its thread that holds it."""
     eps = 1e-6
-    holders = [p for p in ranges if p is not r and p[2] <= r[2] + eps
+    holders = [p for p in ranges if p is not r and p[4] == r[4]
+               and p[2] <= r[2] + eps
                and r[3] <= p[3] + eps and p[3] - p[2] >= r[3] - r[2]]
     return min(holders, key=lambda p: p[3] - p[2], default=None)
 
@@ -288,9 +293,12 @@ def test_substages_sum_within_their_stages(run, runs):
             <= s["output_s"] + SLACK_S
     else:
         assert s["output_encode_s"] == s["output_deflate_s"] == 0
-    stages = ("input_parse_s", "device_seed_locate_s", "native_finalize_s",
-              "output_s")
-    assert sum(s[k] for k in stages) <= s["wall_s"]
+    # each thread's stages within the wall: the main thread's, and the
+    # finalize worker's
+    main = ("input_parse_s", "device_seed_locate_s", "finalize_wait_s",
+            "output_s")
+    assert sum(s[k] for k in main) <= s["wall_s"]
+    assert s["native_finalize_s"] <= s["wall_s"]
 
 
 def test_first_file_reader_is_timed(work, toy):
@@ -309,7 +317,22 @@ def test_trace_has_a_chunk_range_a_chunk_and_ranges_nest(traced):
         assert (p[0] if p else None) in PARENTS[r[0]], (r, p)
         if p is None or p[1] is None or r[0] == "dart.prefetch":
             continue
+        if r[0] in ("dart.finalize.wait", "dart.output"):
+            # chunk k's drain writes chunk k - 1, and the last its own
+            assert r[1] == p[1] - 1 or r[1] == p[1] == stats["chunks"] - 1, \
+                (r, p)
+            continue
         assert r[1] == p[1], (r, p)  # a chunk's spans carry its ordinal
+    # each chunk is finalized once, on a thread of its own, and waited
+    # for and written once, in order, on the main thread
+    main = {r[4] for r in ranges if r[0] == "dart.chunk"}
+    for stage, thread in (("dart.finalize", False),
+                          ("dart.finalize.wait", True),
+                          ("dart.output", True)):
+        mine = sorted((r for r in ranges if r[0] == stage),
+                      key=lambda r: r[2])
+        assert [r[1] for r in mine] == list(range(stats["chunks"])), stage
+        assert all((r[4] in main) == thread for r in mine), stage
     # the prefetch parses and submits chunk k + 2 inside chunk k's drain
     prefetched = [r for r in ranges if r[0] == "dart.input"
                   and parent_of(r, ranges)[0] == "dart.prefetch"]

@@ -4,8 +4,9 @@ reads (``spliced.fa``, 600 reads) as three files at ``--batch 256``, so
 that each file is cut into three chunks (256, 256, 88). The stream is
 c3's SAM records three times with its junction counts tripled; a run
 crashed in the second file resumes from its checkpoint to the
-uninterrupted output, also when the last save lags the crash; the
-stream module logs every chunk and ends with its summary line; and
+uninterrupted output, also when the last save lags the crash, and
+through ``stream.crash_and_resume`` in the third file; the stream
+module logs every chunk and ends with its summary line; and
 ``check_stream`` refuses a changed record or junction count."""
 
 import contextlib
@@ -188,6 +189,29 @@ def test_crash_in_second_file_resumes(fmt, interval, port_toy, whole,
     if fmt == "bam" and interval != "0":
         got, want = gzip.decompress(got), gzip.decompress(want)
     assert got == want
+
+
+@pytest.mark.parametrize("fmt", ["sam", "bam"])
+def test_crash_and_resume_in_a_later_file(fmt, port_toy, whole, golden_dir,
+                                          data_dir, tmp_path):
+    """``stream.crash_and_resume``: the three-file stream dies in the
+    second chunk of its third file, with no chunk finished since the
+    last save, and its rerun resumes from the checkpoint after that
+    file's first chunk to the uninterrupted stream's outputs, byte for
+    byte."""
+    out, tab = tmp_path / f"c.{fmt}", tmp_path / "c.tab"
+    cfg = parse_args(argv(golden_dir, data_dir, out, tab, fmt, n=1,
+                          extra=["--checkpoint"]))
+    got = stream.crash_and_resume(port_toy, cfg, N_FILES, "cpu",
+                                  make_engine(port_toy, cfg, "cpu"),
+                                  PER_FILE, file_idx=2, chunk=2)
+    assert (got["file"], got["file_chunk"], got["redone"]) == (2, 2, 0)
+    assert got["crashed"] == 2 * CHUNKS_A_FILE + 2
+    assert (got["ckpt"]["file_idx"], got["ckpt"]["chunks"]) == (2, 1)
+    assert got["ckpt"]["counters"]["total"] == 2 * PER_FILE + BATCH
+    assert got["resumed"]["chunks"] == CHUNKS_A_FILE - 1
+    assert tab.read_bytes() == open(whole[fmt][1], "rb").read()
+    assert out.read_bytes() == open(whole[fmt][0], "rb").read()
 
 
 def test_stream_module_logs_each_chunk(golden_dir, data_dir, tmp_path,
