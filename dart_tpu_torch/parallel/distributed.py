@@ -91,6 +91,20 @@ class _RangeFile:
         self.fh.close()
 
 
+def shard_reader_class(path1: str, path2, pair_end: bool):
+    """The class of ``make_shard_reader``'s reader: ``_StridedReader``
+    for gzip, split or interleaved pairs, else ``ChunkReader`` over a
+    byte range."""
+    from ..io.fastx import ChunkReader
+
+    # pair_end without path2 = interleaved pairs: byte_shard aligns to
+    # ANY record boundary, and a shard starting at an odd record index
+    # would flip mate parity for its whole range — chunk round-robin
+    # keeps pairs intact (chunks round to even counts)
+    return (_StridedReader if path1.endswith(".gz") or path2 is not None
+            or pair_end else ChunkReader)
+
+
 def make_shard_reader(path1: str, path2, pair_end: bool, chunk_reads: int,
                       n_shards: int, shard_id: int):
     """ChunkReader over this process's shard. For paired split files the
@@ -100,12 +114,7 @@ def make_shard_reader(path1: str, path2, pair_end: bool, chunk_reads: int,
     chunk striping (correct for any input)."""
     from ..io.fastx import ChunkReader
 
-    gz = path1.endswith(".gz")
-    if gz or path2 is not None or pair_end:
-        # pair_end without path2 = interleaved pairs: byte_shard aligns
-        # to ANY record boundary, and a shard starting at an odd record
-        # index would flip mate parity for its whole range — chunk
-        # round-robin keeps pairs intact (chunks round to even counts)
+    if shard_reader_class(path1, path2, pair_end) is _StridedReader:
         return _StridedReader(ChunkReader(path1, path2, pair_end,
                                           chunk_reads=chunk_reads),
                               n_shards, shard_id)
@@ -211,7 +220,7 @@ def run_distributed(cfg, coordinator: str, nprocs: int, pid: int,
 
 
 def _run(cfg, nprocs: int, pid: int, device) -> None:
-    from ..aligner import DartAligner, make_engine
+    from ..aligner import Checkpoint, DartAligner, make_engine
     from ..index import load_index
     from ..pipeline.junctions import write_sj_table
 
@@ -224,96 +233,61 @@ def _run(cfg, nprocs: int, pid: int, device) -> None:
               f"{getattr(eng, 'cache', None)}", file=sys.stderr)
 
     shard_sam = f"{cfg.output_file}.shard{pid:04d}"
-    files2 = (cfg.read_files_2 if cfg.read_files_2
-              else [None] * len(cfg.read_files_1))
+    files = list(zip(cfg.read_files_1, cfg.read_files_2
+                     or [None] * len(cfg.read_files_1)))
     # per file: the chunks' byte offsets in this shard, so that the merge
     # can put strided chunks and file sections back in input order
     shard_meta = {"files": []}
 
-    # this process's checkpoint: input cursor, shard offsets, junctions
-    # and counters so far
-    ckpt_path = shard_sam + ".ckpt"
-    resume = None
-    if cfg.checkpoint and os.path.exists(ckpt_path) \
-            and os.path.exists(shard_sam):
-        with open(ckpt_path) as f:
-            st = json.load(f)
-        if (st.get("batch_reads") == cfg.batch_reads
-                and st.get("nprocs") == nprocs):
-            resume = st
-            aligner.counters.update(resume["counters"])
-            for g1, g2, t, cnt in resume["sj"]:
-                aligner.sj_map[(g1, g2)] = [t, cnt]
-            with open(shard_sam, "r+") as f:
-                f.truncate(resume["bytes"])
-            shard_meta["files"] = resume["files_done"]
+    # this process's checkpoint: the aligner's cursor, counters and
+    # junctions, and the shard's offsets so far
+    ckpt = Checkpoint(shard_sam, cfg, nprocs=nprocs) if cfg.checkpoint \
+        else None
+    resume = ckpt and ckpt.resume(
+        aligner, files, lambda p1, p2: shard_reader_class(p1, p2,
+                                                          cfg.pair_end))
+    if resume:
+        shard_meta["files"] = resume["files_done"]
+    on_written = None
+    crash_after = int(os.environ.get("DART_TPU_TEST_CRASH_AFTER_CHUNKS", "0"))
+    if ckpt and crash_after:
+        def on_written(fst, _n):  # a test's process that dies after N chunks
+            if fst["chunks"] >= crash_after:
+                raise RuntimeError("injected distributed crash")
+
+    def open_shard(path1, path2):
+        return make_shard_reader(path1, path2, cfg.pair_end, cfg.batch_reads,
+                                 nprocs, pid)
 
     with open(shard_sam, "a" if resume else "w") as out:
-        state = {"fi": 0, "chunks": 0}
-
-        def emit(sam):
+        def emit(sam, fst):
             out.write(sam.decode("latin-1") if isinstance(sam, bytes)
                       else "\n".join(sam) + ("\n" if sam else ""))
             offs.append(out.tell())
-            state["chunks"] += 1
-            if cfg.checkpoint:
+            if ckpt:
                 out.flush()
-                tmp = ckpt_path + ".tmp"
-                with open(tmp, "w") as f:
-                    json.dump({
-                        "batch_reads": cfg.batch_reads, "nprocs": nprocs,
-                        "file_idx": state["fi"], "chunks": state["chunks"],
-                        "bytes": out.tell(), "offs": offs,
-                        "files_done": shard_meta["files"],
-                        "counters": aligner.counters,
-                        "sj": [[g1, g2, v[0], v[1]] for (g1, g2), v in
-                               sorted(aligner._merged_sj().items())]}, f)
-                os.replace(tmp, ckpt_path)
-                crash_after = int(os.environ.get(
-                    "DART_TPU_TEST_CRASH_AFTER_CHUNKS", "0"))
-                if crash_after and state["chunks"] >= crash_after:
-                    # test hook: a process failing after N chunks
-                    raise RuntimeError("injected distributed crash")
+                ckpt.save(aligner, fst, sam_bytes=out.tell(), offs=offs,
+                          files_done=shard_meta["files"])
 
-        for fi, (path1, path2) in enumerate(zip(cfg.read_files_1, files2)):
-            if resume is not None and fi < resume["file_idx"]:
-                continue
-            reader = make_shard_reader(path1, path2, cfg.pair_end,
-                                       cfg.batch_reads, nprocs, pid)
-            state["fi"], state["chunks"] = fi, 0
-            offs = [out.tell()]
-            if resume is not None and fi == resume["file_idx"]:
-                for _ in range(resume["chunks"]):
-                    reader.next_chunk()  # deterministic fast-forward
-                state["chunks"] = resume["chunks"]
-                offs = resume["offs"]
-                resume = None
-            if aligner.native is not None:
-                fst = {"file_idx": fi, "reader": reader, "chunks": 0,
-                       "kind": type(reader).__name__,
-                       "pair_end": reader.pair_end, "fastq": reader.fastq}
-                aligner._run_stream_pipelined(iter([fst]),
-                                              lambda sam, _f: emit(sam))
-            else:
-                while True:
-                    reads = reader.next_chunk()
-                    if not reads:
-                        break
-                    emit(aligner.process_chunk(reads, reader.pair_end,
-                                               reader.fastq))
-            reader.close()
+        # one stream per file, drained at its end, so that each file's
+        # offsets end with its last chunk
+        for fst in aligner.file_states(files, open_shard, resume):
+            offs = (resume["offs"] if resume
+                    and fst["file_idx"] == resume["file_idx"]
+                    else [out.tell()])
+            aligner.stream(iter([fst]), emit, on_written)
             shard_meta["files"].append(
-                {"strided": isinstance(reader, _StridedReader),
+                {"strided": isinstance(fst["reader"], _StridedReader),
                  "offsets": offs})
 
     with open(shard_sam + ".idx", "w") as f:
         json.dump(shard_meta, f)
-    if cfg.checkpoint and os.path.exists(ckpt_path):
-        os.remove(ckpt_path)
+    if ckpt:
+        ckpt.remove()
 
     # ---- the merge ----
     merged_sj = _allgather_sj([(g1, g2, v[0], v[1]) for (g1, g2), v in
-                               sorted(aligner._merged_sj().items())])
+                               sorted(aligner.junction_map().items())])
     c = aligner.counters
     totals = torch.tensor([c["total"], c["unique"], c["unmapped"],
                            c["paired"]], dtype=torch.int64)

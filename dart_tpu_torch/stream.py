@@ -228,10 +228,6 @@ def run_stream(idx, cfg, n_files: int, device="cuda", engine=None,
     scfg.read_files_1 = files1 * n_files
     scfg.read_files_2 = files2 * n_files
     aligner = DartAligner(idx, scfg, engine)
-    if aligner.native is None:
-        raise RuntimeError("the stream's chunk log needs the native host "
-                           "pipeline (a C++ toolchain, without -d or "
-                           "--no-native)")
     if on_aligner is not None:
         on_aligner(aligner)
     launches0 = dict(engine.launches)
@@ -240,13 +236,10 @@ def run_stream(idx, cfg, n_files: int, device="cuda", engine=None,
         torch.cuda.reset_peak_memory_stats(dev)
     records = []
     clock = {"last": 0.0}
-    orig = aligner._write_chunk
 
-    def write_chunk(reads, finalized, emit):
-        orig(reads, finalized, emit)
+    def on_written(_fst, n):
         now = time.perf_counter()
-        n = len(reads)  # what the chunk's finalize added to the total
-        before = aligner.counters["total"] - n
+        before = aligner.counters["total"] - n  # n: the chunk's reads
         dt = now - clock["last"]
         clock["last"] = now
         rec = {"file": before // per_file, "reads": n, "t": now, "s": dt,
@@ -264,10 +257,9 @@ def run_stream(idx, cfg, n_files: int, device="cuda", engine=None,
                  f" own {_mib(mem['own'])} MiB" if mem else ""), file=log,
               flush=True)
 
-    aligner._write_chunk = write_chunk
     t0 = clock["last"] = time.perf_counter()
     with contextlib.redirect_stdout(log):
-        aligner.run()
+        aligner.run(on_written=on_written)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
@@ -337,16 +329,17 @@ def crash_hook(per_file: int, file_idx: int, chunk: int, lag: int = 0):
     finished since the last checkpoint save, so that the resume re-does
     them. Returns (hook, record): the record holds the crashed chunk and
     the chunks done at the last save (from 1)."""
-    seen = {"calls": 0, "saved": 0, "since": 0, "files": {}}
+    seen = {"calls": 0, "saved": 0, "since": 0, "saves": 0, "files": {}}
 
     def hook(aligner):
-        proc, save = aligner.native.process_chunk, aligner._ckpt_save
-
-        def saving(*a, **kw):
-            seen["saved"], seen["since"] = seen["calls"], 0
-            return save(*a, **kw)
+        proc = aligner.native.process_chunk
 
         def flaky(*a, **kw):
+            # the worker is idle at every save, so a save since the last
+            # call came after every call before this one
+            if aligner.checkpoint.saves != seen["saves"]:
+                seen["saves"] = aligner.checkpoint.saves
+                seen["saved"], seen["since"] = seen["calls"], 0
             f = aligner.counters["total"] // per_file
             seen["files"][f] = seen["files"].get(f, 0) + 1
             seen["calls"] += 1
@@ -358,7 +351,6 @@ def crash_hook(per_file: int, file_idx: int, chunk: int, lag: int = 0):
             seen["since"] += 1
             return out
 
-        aligner._ckpt_save = saving
         aligner.native.process_chunk = flaky
 
     return hook, seen

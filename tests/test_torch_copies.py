@@ -35,7 +35,10 @@ BY_DESIGN = {
                   "once (device_only_wait_s, wall_s); the native finalize "
                   "of chunk k runs on one worker thread while the main "
                   "thread seeds chunk k+1, and chunks are written in order "
-                  "(finalize_wait_s)",
+                  "(finalize_wait_s); one public chunk loop (stream, with "
+                  "on_written) that run, --dist and stream.py drive, one "
+                  "reader choice (reader_class) and one Checkpoint with a "
+                  "layout version, and no DART_TPU_RAMP",
     "cli.py": "--device, the port's usage, torch.distributed flags",
     "native/build.py": "its own library name, libdart_torch_native, built "
                        "into dart_tpu_torch/_build",
@@ -49,7 +52,10 @@ BY_DESIGN = {
     "pipeline/seeding.py": "no seed_drain path: the engine's kernels run "
                            "every lane to its end in one launch",
     "parallel/distributed.py": "torch.distributed over gloo in place of "
-                               "jax.distributed",
+                               "jax.distributed; each shard runs "
+                               "DartAligner.stream and its Checkpoint in "
+                               "place of a chunk loop and checkpoint of "
+                               "its own",
     "parallel/mesh.py": "ShardedFMIndexTorch over a list of torch devices "
                         "in place of a jax.sharding.Mesh",
 }

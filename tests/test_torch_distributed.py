@@ -7,6 +7,7 @@ junction table and -m's multiple alignments among them), BAM output, and
 a resume from per-process checkpoints after an injected crash. Each
 pair of processes is killed if it outlives its time limit."""
 
+import json
 import os
 import subprocess
 import sys
@@ -119,6 +120,79 @@ def test_two_process_checkpoint_resume(tmp_path):
                                     "rb").read()
     assert sj.read_bytes() == open(
         os.path.join(GOLD, "c3_spliced.junctions.tab"), "rb").read()
+
+
+def test_two_process_pre_version_checkpoint_restarts(tmp_path):
+    """Checkpoints in the layout of the port before ``Checkpoint`` (no
+    ``version``, ``bytes`` for the shard's length, no output format or
+    reader) do not resume: the rerun starts every shard over and gives
+    the golden output, although each shard's bytes before its
+    checkpoint's offset were overwritten."""
+    out, sj = tmp_path / "out.sam", tmp_path / "junctions.tab"
+    args = ["-i", os.path.join(GOLD, "index", "toy"), "-f",
+            os.path.join(DATA, "spliced.fa"), "-o", str(out), "-j", str(sj),
+            "-silent", "--batch", "64", "--checkpoint"]
+    rcs, errs = run_pair(args, {"DART_TPU_TEST_CRASH_AFTER_CHUNKS": "2"})
+    assert all(rc != 0 for rc in rcs), "the crash hook did not fire"
+    for pid in range(2):
+        shard = f"{out}.shard{pid:04d}"
+        with open(shard + ".ckpt") as f:
+            state = json.load(f)
+        assert state.pop("version")
+        del state["output_format"], state["reader"]
+        state["bytes"] = state.pop("sam_bytes")
+        with open(shard + ".ckpt", "w") as f:
+            json.dump(state, f)
+        with open(shard, "r+b") as f:  # a resume would keep these bytes
+            f.write(b"#" * state["bytes"])
+
+    rcs, errs = run_pair(args)
+    assert rcs == [0, 0], errs[0][-2000:] + errs[1][-2000:]
+    assert not os.path.exists(str(out) + ".shard0000.ckpt")
+    assert out.read_bytes() == open(os.path.join(GOLD, "c3_spliced.sam"),
+                                    "rb").read()
+    assert sj.read_bytes() == open(
+        os.path.join(GOLD, "c3_spliced.junctions.tab"), "rb").read()
+
+
+@pytest.mark.parametrize("files,extra", [
+    # plain single-end files: byte-range shards
+    (["spliced.fa", "se_exact.fa"], ["-mis", "5"]),
+    # interleaved pairs: round-robin (strided) shards
+    (["pe_inter.fq", "pe_inter.fq"], ["-p", "-mis", "5"]),
+], ids=["byte_range", "strided"])
+def test_two_process_run_of_two_files_equals_one_process(tmp_path, files,
+                                                         extra):
+    """Two ``-f`` files through two processes: the merged SAM and
+    junctions.tab are byte-equal to one process's run of the same
+    files and flags."""
+    import contextlib
+    import io
+
+    import torch
+
+    from dart_tpu_torch.aligner import DartAligner, make_engine
+    from dart_tpu_torch.cli import parse_args
+    from dart_tpu_torch.index import load_index
+
+    args = ["-i", os.path.join(GOLD, "index", "toy"),
+            *[a for f in files for a in ("-f", os.path.join(DATA, f))],
+            *extra, "-silent", "--batch", "256"]
+    one = (tmp_path / "one.sam", tmp_path / "one.tab")
+    cfg = parse_args([*args, "-o", str(one[0]), "-j", str(one[1])])
+    idx = load_index(cfg.index_prefix)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)  # as the ranks: the test workers share the cores
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            DartAligner(idx, cfg, engine=make_engine(idx, cfg, "cpu")).run()
+    finally:
+        torch.set_num_threads(n)
+    two = (tmp_path / "two.sam", tmp_path / "two.tab")
+    rcs, errs = run_pair([*args, "-o", str(two[0]), "-j", str(two[1])])
+    assert rcs == [0, 0], errs[0][-2000:] + errs[1][-2000:]
+    assert two[0].read_bytes() == one[0].read_bytes()
+    assert two[1].read_bytes() == one[1].read_bytes()
 
 
 def test_world_size_is_checked(monkeypatch):

@@ -1,4 +1,4 @@
-"""The stream loop's finalize worker (``DartAligner._run_stream_pipelined``)
+"""The stream loop's finalize worker (``DartAligner.stream``, native)
 on the CPU: chunk k's native finalize runs on one thread of its own while
 the main thread drains chunk k+1's seeding, and chunks are written in order
 on the main thread with the worker idle.
@@ -11,6 +11,7 @@ timeout, so that no test can hang: a run that does not end within
 
 import contextlib
 import io
+import json
 import os
 import sys
 import threading
@@ -21,7 +22,6 @@ import torch
 from dart_tpu_torch import cli
 from dart_tpu_torch.aligner import DartAligner, make_engine
 from dart_tpu_torch.index import load_index
-from dart_tpu_torch.io.fastx_fast import FastChunkReader
 from dart_tpu_torch.pipeline import seeding
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -75,10 +75,10 @@ def aligner_of(idx, argv, hook=None) -> DartAligner:
     return aligner
 
 
-def run(aligner) -> DartAligner:
+def run(aligner, on_written=None) -> DartAligner:
     def go():
         with contextlib.redirect_stdout(io.StringIO()):
-            aligner.run()
+            aligner.run(on_written=on_written)
         return aligner
 
     return bounded(go)
@@ -192,44 +192,42 @@ def test_worker_exception_comes_out_of_run(call, idx, tmp_path):
 def test_checkpoint_counts_the_written_chunks(idx, tmp_path):
     """Saving every chunk over two files: at every checkpoint save the
     counters hold the reads of the chunks written and no more, and no
-    finalize runs; chunk k's finalize starts after chunk k-1's save."""
+    finalize runs; chunk k's finalize starts after chunk k-1's save.
+    ``on_written`` runs after each chunk's save, so it sees the save
+    and the checkpoint it wrote."""
     saves, written, running, starts = [], [0], [0], []
+    ckpt = tmp_path / "c.sam.ckpt"
 
     def hook(aligner):
-        save, write = aligner._ckpt_save, aligner._write_chunk
         proc = aligner.native.process_chunk
 
-        def saving(*a, **kw):
-            saves.append((aligner.counters["total"], written[0],
-                          running[0]))
-            return save(*a, **kw)
-
-        def writing(reads, finalized, emit):
-            finalized.result(WAIT_S)
-            written[0] += len(reads)
-            return write(reads, finalized, emit)
-
         def finalizing(*a, **kw):
-            starts.append(len(saves))
+            starts.append(aligner.checkpoint.saves)
             running[0] += 1
             try:
                 return proc(*a, **kw)
             finally:
                 running[0] -= 1
 
-        aligner._ckpt_save = saving
-        aligner._write_chunk = writing
         aligner.native.process_chunk = finalizing
 
-    aligner = run(aligner_of(
+    def on_written(fst, n):
+        written[0] += n
+        state = json.loads(ckpt.read_text())
+        saves.append((state["counters"]["total"], written[0], running[0],
+                      aligner.checkpoint.saves))
+
+    aligner = aligner_of(
         idx, spliced_argv(tmp_path, "c", files=2,
                           extra=["--checkpoint", "--ckpt-interval", "0"]),
-        hook))
+        hook)
+    run(aligner, on_written)
     assert len(saves) == 2 * CHUNKS == aligner.stats["chunks"]
-    assert all(total == done and not busy for total, done, busy in saves)
+    assert all(total == done and not busy for total, done, busy, _ in saves)
+    assert [n for *_, n in saves] == list(range(1, 2 * CHUNKS + 1))
     assert starts == list(range(2 * CHUNKS))
     assert saves[-1][0] == 2 * 600
-    assert not (tmp_path / "c.sam.ckpt").exists()
+    assert not ckpt.exists()
 
 
 class Writers(dict):
@@ -289,21 +287,16 @@ def test_each_stats_key_has_one_writer_under_stress(idx, tmp_path):
 
 
 def test_one_call_leaves_nothing_in_flight(idx, tmp_path):
-    """``_run_stream_pipelined`` over one file, as a ``--dist`` shard
-    calls it, returns with every chunk written and counted and its
-    worker gone; a second call goes on from there."""
+    """``stream`` over one file, as a ``--dist`` shard calls it, returns
+    with every chunk written and counted and its worker gone; a second
+    call goes on from there."""
     aligner = aligner_of(idx, spliced_argv(tmp_path, "d"))
     parts = []
 
     def one_file():
-        reader = FastChunkReader(os.path.join(DATA, "spliced.fa"), False,
-                                 BATCH, ramp=False)
-        fst = {"file_idx": 0, "reader": reader, "chunks": 0,
-               "kind": type(reader).__name__,
-               "pair_end": reader.pair_end, "fastq": reader.fastq}
-        aligner._run_stream_pipelined(iter([fst]),
-                                      lambda sam, _f: parts.append(sam))
-        reader.close()
+        files = aligner.file_states([(os.path.join(DATA, "spliced.fa"),
+                                      None)])
+        aligner.stream(files, lambda sam, fst: parts.append(sam))
         return (aligner.stats["chunks"], aligner.counters["total"],
                 len(parts), workers())
 
