@@ -235,11 +235,14 @@ class DartAligner:
         # prefetch left out. The native finalize's two phases (written
         # by the worker alone) and the engine's copies and located rows
         # over this run add, as do the reads the native input pass
-        # emitted (input_native_reads).
+        # emitted (input_native_reads) and the bytes the BAM writer
+        # framed into BGZF members (output_bytes), natively on the -t
+        # threads or not (output_native_bytes).
         self.stats = {**dict.fromkeys(spans.KEYS, 0.0),
                       "finalize_parallel_s": 0.0, "finalize_serial_s": 0.0,
                       "dtoh_bytes": 0, "htod_bytes": 0, "locate_rows": 0,
-                      "input_native_reads": 0, "chunks": 0, "wall_s": 0.0}
+                      "input_native_reads": 0, "output_bytes": 0,
+                      "output_native_bytes": 0, "chunks": 0, "wall_s": 0.0}
         self.spans = spans.Spans(self.stats)
         self.worker_spans = spans.Spans(self.stats)  # the finalize worker's
         self._n_parsed = 0  # the ordinal of the next chunk parsed
@@ -576,6 +579,9 @@ class DartAligner:
             if own:
                 if writer is not None:
                     writer.close()
+                    self.stats["output_bytes"] += writer.bgzf.deflated_bytes
+                    self.stats["output_native_bytes"] += \
+                        writer.bgzf.native_bytes
                 else:
                     out_stream.close()
             self.sj_map = self.junction_map()
@@ -616,7 +622,8 @@ class DartAligner:
               f"{s['finalize_serial_s']:.2f}s; waited "
               f"{s['finalize_wait_s']:.2f}s) | output {s['output_s']:.2f}s "
               f"(encode {s['output_encode_s']:.2f}s, deflate "
-              f"{s['output_deflate_s']:.2f}s)", file=sys.stderr)
+              f"{s['output_deflate_s']:.2f}s; {s['output_native_bytes']} of "
+              f"{s['output_bytes']} BGZF bytes native)", file=sys.stderr)
         print(f"[stats] copies {s['dtoh_bytes'] / n:.1f} B/read to the host, "
               f"{s['htod_bytes'] / n:.1f} B/read to the device; "
               f"{s['locate_rows'] / n:.3f} located rows/read", file=sys.stderr)

@@ -10,8 +10,12 @@ differ from htslib's).
 from __future__ import annotations
 
 import ctypes
+import functools
 import struct
 import zlib
+from typing import NamedTuple
+
+import numpy as np
 
 from ..spans import span
 
@@ -23,10 +27,10 @@ BGZF_EOF = bytes.fromhex(
 
 
 def _deflate_block(raw: bytes, level: int = 1) -> bytes:
-    """One complete BGZF member for `raw` (<= MAX_BLOCK bytes). Pure
-    function of its input, so blocks compress in parallel: zlib
-    releases the GIL, making a plain thread pool an effective -t
-    analogue of htslib's bgzf_mt writer threads.
+    """One complete BGZF member for `raw` (<= MAX_BLOCK bytes): the
+    readable twin of native/bgzf.cpp, which deflates the full blocks of
+    a write, and the framing of the short blocks that flush_boundary
+    and close write.
 
     level defaults to 1: deflate is ~half the PE+BAM wall on a
     one-core host at htslib's default 6, and the BAM contract here is
@@ -47,38 +51,122 @@ def _deflate_block(raw: bytes, level: int = 1) -> bytes:
     return header + comp + struct.pack("<II", crc, len(raw))
 
 
+class Native(NamedTuple):
+    """The native library's BAM entries, each None where it is missing."""
+    encode: object  # dart_sam_to_bam_mt
+    deflate: object  # dart_bgzf_deflate
+
+
+@functools.cache
+def _native() -> Native:
+    """The encoder where the native library loads, and the BGZF deflate
+    where it was built with zlib and that zlib is the runtime of
+    Python's zlib module, whose bytes its members must equal."""
+    from ..native import build as native_build
+
+    lib = native_build.load()
+    encode = deflate = None
+    if lib is not None and hasattr(lib, "dart_sam_to_bam_mt"):
+        encode = lib.dart_sam_to_bam_mt
+        encode.restype = ctypes.c_int64
+        encode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p,
+                           ctypes.c_void_p, ctypes.c_int64, ctypes.c_int]
+    if lib is not None and hasattr(lib, "dart_bgzf_deflate"):
+        lib.dart_bgzf_zlib_version.restype = ctypes.c_char_p
+        lib.dart_bgzf_zlib_version.argtypes = []
+        if lib.dart_bgzf_zlib_version().decode() == zlib.ZLIB_RUNTIME_VERSION:
+            deflate = lib.dart_bgzf_deflate
+            deflate.restype = ctypes.c_int64
+            deflate.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                                ctypes.c_int, ctypes.c_void_p, ctypes.c_int64]
+    return Native(encode, deflate)
+
+
+def _room(buf: np.ndarray, need: int, keep: int = 0) -> np.ndarray:
+    """`buf`, or a larger one holding its first `keep` bytes, with room
+    for `need` bytes: the writers' buffers are kept across writes and
+    grow only when a write needs more."""
+    if need <= len(buf):
+        return buf
+    grown = np.empty(max(need, 2 * len(buf)), np.uint8)
+    grown[:keep] = buf[:keep]
+    return grown
+
+
 class BgzfWriter:
     MAX_BLOCK = 65280
+    MAX_MEMBER = 65536  # BSIZE is 16 bits
 
     def __init__(self, path: str, append: bool = False, threads: int = 1,
                  level: int = 1):
         self.fh = open(path, "ab" if append else "wb")
-        self.buf = bytearray()
         self.level = level
+        self.threads = max(1, threads)
+        self._deflate = _native().deflate
         self._pool = None
-        if threads > 1:
+        if threads > 1 and self._deflate is None:
             from concurrent.futures import ThreadPoolExecutor
 
             self._pool = ThreadPoolExecutor(threads)
+        # raw[:n] is the tail that fills no block yet; out takes one
+        # write's members
+        self._raw = np.empty(self.MAX_BLOCK, np.uint8)
+        self._n = 0
+        self._out = np.empty(0, np.uint8)
+        self.deflated_bytes = 0  # the bytes framed into members
+        self.native_bytes = 0  # of those, the bytes native/bgzf.cpp framed
+
+    def reserve(self, n: int) -> int:
+        """The address of room for `n` bytes after the tail, where a
+        native encoder writes; commit(k) then writes the first k. Valid
+        until the writer's next call."""
+        self._raw = _room(self._raw, self._n + n, self._n)
+        return self._raw.ctypes.data + self._n
 
     def write(self, data: bytes) -> None:
-        self.buf += data
-        n_full = len(self.buf) // self.MAX_BLOCK
+        n = len(data)
+        self.reserve(n)
+        self._raw[self._n:self._n + n] = np.frombuffer(data, np.uint8)
+        self.commit(n)
+
+    def commit(self, n: int) -> None:
+        """Take `n` bytes written after the tail; deflate and write every
+        full block (on the -t threads), keeping the rest as the tail."""
+        self._n += n
+        n_full = self._n // self.MAX_BLOCK
         if not n_full:
             return
-        blocks = [bytes(self.buf[i * self.MAX_BLOCK:(i + 1) * self.MAX_BLOCK])
-                  for i in range(n_full)]
-        del self.buf[: n_full * self.MAX_BLOCK]
-        if self._pool is not None and len(blocks) > 1:
-            # parallel compress, ordered write
-            import functools
-
-            enc = functools.partial(_deflate_block, level=self.level)
-            for comp in self._pool.map(enc, blocks):
-                self.fh.write(comp)
+        full = n_full * self.MAX_BLOCK
+        if self._deflate is not None:
+            cap = n_full * self.MAX_MEMBER
+            self._out = _room(self._out, cap)
+            m = self._deflate(self._raw.ctypes.data, n_full, self.level,
+                              self.threads, self._out.ctypes.data, cap)
+            if m < 0:
+                raise RuntimeError(f"dart_bgzf_deflate failed ({m})")
+            self.fh.write(self._out[:m])
+            self.native_bytes += full
         else:
-            for raw in blocks:
-                self.fh.write(_deflate_block(raw, self.level))
+            blocks = [self._raw[i * self.MAX_BLOCK:(i + 1) * self.MAX_BLOCK]
+                      .tobytes() for i in range(n_full)]
+            enc = functools.partial(_deflate_block, level=self.level)
+            if self._pool is not None and n_full > 1:
+                members = self._pool.map(enc, blocks)  # ordered
+            else:
+                members = map(enc, blocks)
+            for comp in members:
+                self.fh.write(comp)
+        self.deflated_bytes += full
+        rest = self._n - full
+        self._raw[:rest] = self._raw[full:self._n]
+        self._n = rest
+
+    def _write_tail(self) -> None:
+        if self._n:
+            self.fh.write(_deflate_block(self._raw[:self._n].tobytes(),
+                                         self.level))
+            self.deflated_bytes += self._n
+            self._n = 0
 
     def flush_boundary(self) -> int:
         """Flush any buffered bytes as a (possibly short) BGZF block
@@ -86,16 +174,12 @@ class BgzfWriter:
         checkpoint/resume (BGZF blocks are independent; a truncated
         file at a block boundary plus appended blocks is a valid
         stream)."""
-        if self.buf:
-            self.fh.write(_deflate_block(bytes(self.buf), self.level))
-            self.buf.clear()
+        self._write_tail()
         self.fh.flush()
         return self.fh.tell()
 
     def close(self) -> None:
-        if self.buf:
-            self.fh.write(_deflate_block(bytes(self.buf), self.level))
-            self.buf.clear()
+        self._write_tail()
         self.fh.write(BGZF_EOF)
         self.fh.close()
         if self._pool is not None:
@@ -148,8 +232,8 @@ class BamWriter:
         boundary (checkpoint resume): no header is rewritten, but
         write_header must still be called with the same lines to
         rebuild the reference-id map (it skips the output).
-        threads>1 compresses BGZF blocks in parallel (htslib bgzf_mt
-        analogue; only pays off on multi-core hosts)."""
+        threads>1 encodes and compresses on that many threads (htslib
+        bgzf_mt analogue; only pays off on multi-core hosts)."""
         self.bgzf = BgzfWriter(path, append=append, threads=threads,
                                 level=level)
         self.ref_ids: dict[str, int] = {}
@@ -178,43 +262,28 @@ class BamWriter:
             out += struct.pack("<i", len(nb)) + nb + struct.pack("<i", ln)
         self.bgzf.write(out)
 
-    _ENC = None
-
     def write_sam_bytes(self, sam: bytes) -> None:
         """Encode a whole SAM-text chunk ('@' lines skipped) through
-        the native encoder (native/bamenc.cpp) — the BAM-output hot
+        the native encoder (native/bamenc.cpp) on the -t threads, into
+        the BGZF writer's buffer after its tail — the BAM-output hot
         path, its encode and its BGZF deflate and write under
         dart.output.encode and dart.output.deflate spans; falls back to
         the per-record Python twin."""
-        if BamWriter._ENC is None:
-            from ..native import build as native_build
-
-            lib = native_build.load()
-            if lib is None or not hasattr(lib, "dart_sam_to_bam"):
-                BamWriter._ENC = False
-            else:
-                lib.dart_sam_to_bam.restype = ctypes.c_int64
-                lib.dart_sam_to_bam.argtypes = [
-                    ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p,
-                    ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64]
-                BamWriter._ENC = lib.dart_sam_to_bam
-        if BamWriter._ENC is False:
+        encode = _native().encode
+        if encode is None:
             for line in sam.decode("latin-1").splitlines():
                 if line and not line.startswith("@"):
                     self.write_record(line)
             return
+        bgzf = self.bgzf
         with span("dart.output.encode"):
             names = ("\n".join(self.ref_ids) + "\n").encode()
             cap = len(sam) + len(sam) // 2 + 4096
-            while True:
-                buf = (ctypes.c_uint8 * cap)()
-                n = BamWriter._ENC(sam, len(sam), names, buf, cap)
-                if n >= 0:
-                    break
+            while (n := encode(sam, len(sam), names, bgzf.reserve(cap), cap,
+                               bgzf.threads)) < 0:
                 cap *= 2
-            data = ctypes.string_at(buf, int(n))
         with span("dart.output.deflate"):
-            self.bgzf.write(data)
+            bgzf.commit(n)
 
     def write_record(self, sam_line: str) -> None:
         f = sam_line.split("\t")

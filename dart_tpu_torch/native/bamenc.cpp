@@ -1,5 +1,5 @@
-// SAM-text -> BAM-record encoding (the BGZF framing stays in
-// io/bam.py, whose zlib calls are already C-speed). The
+// SAM-text -> BAM-record encoding (the BGZF framing is native/bgzf.cpp,
+// with io/bam.py as its twin). The
 // reference produces BAM by round-tripping SAM through htslib
 // (Mapping.cpp:655-663); we encode directly, and this native encoder
 // replaces a per-record Python loop that dominated paired-end BAM
@@ -9,11 +9,13 @@
 // .write_record exactly (that Python path remains the readable twin
 // and serves records outside the chunk hot path).
 
+#include <algorithm>
 #include <cctype>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
 #include <string>
+#include <thread>
 #include <unordered_map>
 #include <vector>
 
@@ -93,31 +95,27 @@ void int_tag(Out& o, const char* name, long v) {
   }
 }
 
-}  // namespace
+using Refs = std::unordered_map<std::string, int32_t>;
 
-extern "C" {
-
-// sam: SAM text ('@' header lines are skipped). ref_names:
-// '\n'-separated reference names in @SQ order. Writes BAM records
-// (each prefixed by its int32 block_size) into out. Returns bytes
-// written, or -1 if out_cap was too small (caller retries bigger).
-int64_t dart_sam_to_bam(const char* sam, int64_t sam_len,
-                        const char* ref_names, uint8_t* out,
-                        int64_t out_cap) {
-  std::unordered_map<std::string, int32_t> refs;
-  {
-    int32_t id = 0;
-    const char* s = ref_names;
-    while (*s) {
-      const char* e = s;
-      while (*e && *e != '\n') ++e;
-      refs.emplace(std::string(s, e - s), id++);
-      s = *e ? e + 1 : e;
-    }
+// ref_names: '\n'-separated reference names in @SQ order
+Refs parse_refs(const char* ref_names) {
+  Refs refs;
+  int32_t id = 0;
+  const char* s = ref_names;
+  while (*s) {
+    const char* e = s;
+    while (*e && *e != '\n') ++e;
+    refs.emplace(std::string(s, e - s), id++);
+    s = *e ? e + 1 : e;
   }
-  Out o{out, out + out_cap};
-  const char* p = sam;
-  const char* send = sam + sam_len;
+  return refs;
+}
+
+// The records of the SAM text [p, send) ('@' lines skipped) into
+// [out, out_end); returns the bytes written, or -1 if they do not fit.
+int64_t encode(const char* p, const char* send, const Refs& refs,
+               uint8_t* out, uint8_t* out_end) {
+  Out o{out, out_end};
   std::vector<std::pair<const char*, const char*>> f;
   std::vector<uint32_t> cigbuf;  // reused across records; no op cap
   cigbuf.reserve(4096);
@@ -263,6 +261,63 @@ int64_t dart_sam_to_bam(const char* sam, int64_t sam_len,
     p = eol + 1;
   }
   return o.p > o.end ? -1 : (int64_t)(o.p - out);
+}
+
+}  // namespace
+
+extern "C" {
+
+// sam: SAM text ('@' header lines are skipped). ref_names:
+// '\n'-separated reference names in @SQ order. Writes BAM records
+// (each prefixed by its int32 block_size) into out. Returns bytes
+// written, or -1 if out_cap was too small (caller retries bigger).
+int64_t dart_sam_to_bam(const char* sam, int64_t sam_len,
+                        const char* ref_names, uint8_t* out,
+                        int64_t out_cap) {
+  return encode(sam, sam + sam_len, parse_refs(ref_names), out,
+                out + out_cap);
+}
+
+// dart_sam_to_bam on up to n_threads threads: the text is cut at line
+// starts into ranges of about equal bytes, range r is encoded into the
+// share of out that its share of the text is, and the ranges' records
+// are then closed up in order, so the bytes are dart_sam_to_bam's. -1
+// if a range's records do not fit its share (caller retries bigger).
+int64_t dart_sam_to_bam_mt(const char* sam, int64_t sam_len,
+                           const char* ref_names, uint8_t* out,
+                           int64_t out_cap, int n_threads) {
+  const Refs refs = parse_refs(ref_names);
+  int64_t nt = n_threads > 1 ? n_threads : 1;
+  unsigned hw = std::thread::hardware_concurrency();
+  if (hw && nt > (int64_t)hw) nt = hw;
+  if (nt == 1 || sam_len == 0)
+    return encode(sam, sam + sam_len, refs, out, out + out_cap);
+  std::vector<int64_t> cut((size_t)nt + 1, sam_len);
+  cut[0] = 0;
+  for (int64_t r = 1; r < nt; ++r) {
+    // the first line start at or past r / nt of the text
+    int64_t at = std::max(sam_len * r / nt, cut[(size_t)r - 1]);
+    while (at > 0 && at < sam_len && sam[at - 1] != '\n') ++at;
+    cut[(size_t)r] = at;
+  }
+  auto share = [&](int64_t r) { return out_cap * cut[(size_t)r] / sam_len; };
+  std::vector<int64_t> n((size_t)nt, -1);
+  auto run = [&](int64_t r) {
+    n[(size_t)r] = encode(sam + cut[(size_t)r], sam + cut[(size_t)r + 1],
+                          refs, out + share(r), out + share(r + 1));
+  };
+  std::vector<std::thread> pool;
+  for (int64_t r = 1; r < nt; ++r) pool.emplace_back(run, r);
+  run(0);
+  for (auto& th : pool) th.join();
+  int64_t at = 0;
+  for (int64_t r = 0; r < nt; ++r) {
+    if (n[(size_t)r] < 0) return -1;
+    if (at != share(r))
+      std::memmove(out + at, out + share(r), (size_t)n[(size_t)r]);
+    at += n[(size_t)r];
+  }
+  return at;
 }
 
 }  // extern "C"

@@ -3,10 +3,12 @@
 The native library hosts the host-side hot paths that the reference
 implements in C/C++ (suffix-array construction for the index builder,
 the read packer, the chunk pipeline of chaining, gap closing and SAM
-text, the BAM encoder, the wide table packers). Compiled once into
-``dart_tpu_torch/_build/`` as ``libdart_torch_native``, a name of its
-own, so that it never collides with another package's build of the
-same sources in one process; rebuilt when sources are newer.
+text, the BAM encoder and BGZF deflate, the wide table packers).
+Compiled once into ``dart_tpu_torch/_build/`` as
+``libdart_torch_native``, a name of its own, so that it never collides
+with another package's build of the same sources in one process;
+rebuilt when sources are newer. The BGZF deflate is built only where
+zlib is found, so that a machine without it keeps the rest.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ _LOCK = threading.Lock()
 _LIB = None
 
 SOURCES = ["sais.cpp", "zoo.cpp", "pipeline.cpp", "pack.cpp", "bamenc.cpp",
-           "layout.cpp", "fastx.cpp"]
+           "layout.cpp", "fastx.cpp", "bgzf.cpp"]
+ZLIB_SOURCES = {"bgzf.cpp"}  # built, and -lz linked, only where zlib is
 
 
 def _tsan() -> bool:
@@ -47,16 +50,30 @@ def _needs_build(lib: str) -> bool:
     return False
 
 
+def _has_zlib(out: str) -> bool:
+    """Whether g++ compiles and links a program against zlib here (the
+    probe's binary goes to `out`, then away)."""
+    probe = b"#include <zlib.h>\nint main() { return zlibVersion() == 0; }\n"
+    p = subprocess.run(["g++", "-x", "c++", "-", "-lz", "-o", out],
+                       input=probe, capture_output=True)
+    if os.path.exists(out):
+        os.remove(out)
+    return p.returncode == 0
+
+
 def build(force: bool = False) -> str:
     lib = _lib_path()
     with _LOCK:
         if force or _needs_build(lib):
             os.makedirs(_BUILD, exist_ok=True)
             tmp = f"{lib}.{os.getpid()}.tmp"  # processes may build at once
-            srcs = [os.path.join(_HERE, s) for s in SOURCES if os.path.exists(os.path.join(_HERE, s))]
+            zlib = _has_zlib(tmp + ".zlib")
+            srcs = [os.path.join(_HERE, s) for s in SOURCES
+                    if os.path.exists(os.path.join(_HERE, s))
+                    and (zlib or s not in ZLIB_SOURCES)]
             cmd = [
                 "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-                "-pthread", *srcs, "-o", tmp,
+                "-pthread", *srcs, "-o", tmp, *(["-lz"] if zlib else []),
             ]
             if _tsan():
                 # thread-sanitized build (separate artifact name, so

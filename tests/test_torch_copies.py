@@ -24,7 +24,7 @@ COMMENTS_ONLY = [
     "__init__.py", "config.py", "constants.py", "evaluation.py",
     "index/builder.py", "index/layout_cache.py", "index/loader.py",
     "index/packer.py", "io/fastx.py", "ops/nw_numpy.py",
-    "parallel/__init__.py", "native/bamenc.cpp", "native/pack.cpp",
+    "parallel/__init__.py", "native/pack.cpp",
     "native/sais.cpp", "native/zoo.cpp",
 ]
 BY_DESIGN = {
@@ -41,8 +41,16 @@ BY_DESIGN = {
                   "layout version, and no DART_TPU_RAMP",
     "cli.py": "--device, the port's usage, torch.distributed flags",
     "native/build.py": "its own library name, libdart_torch_native, built "
-                       "into dart_tpu_torch/_build",
-    "io/bam.py": "spans/phase counters the JAX package does not have",
+                       "into dart_tpu_torch/_build, with native/bgzf.cpp "
+                       "and -lz where a probe finds zlib",
+    "native/bamenc.cpp": "dart_sam_to_bam_mt: the chunk's SAM cut at line "
+                         "starts into -t ranges, encoded on their own "
+                         "threads and joined in order; same bytes",
+    "io/bam.py": "spans/phase counters the JAX package does not have; a "
+                 "chunk's records encoded on the -t threads into the BGZF "
+                 "writer's buffer, kept across chunks, and its full blocks "
+                 "deflated by native/bgzf.cpp, with the byte counters that "
+                 "output_native_pct reads; same bytes",
     "io/fastx_fast.py": "the byte work is one native pass in "
                         "native/fastx.cpp; same chunks, same bytes",
     "pipeline/native_chunk.py": "spans/phase counters the JAX package does "
